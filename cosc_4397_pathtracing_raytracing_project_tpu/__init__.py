@@ -1,13 +1,13 @@
-"""TPU-native Monte Carlo path tracing framework.
+"""Monte Carlo path tracing framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the CUDA
+A from-scratch JAX/XLA re-design of the capabilities of the CUDA
 renderer in Sthiber/COSC_4397_Pathtracing_Raytracing_Project (reference
 layout: src/pathtrace.cu, src/scene.cpp, src/main.cpp): iterative wavefront
 path tracing of transformed unit cubes / spheres (plus triangle meshes as an
 extension), BVH acceleration, Russian-roulette termination, an environment sky
 light, interactive orbit camera preview, and a performance + PSNR metrics
 harness — all expressed as pure functions over pytrees compiled into a single
-jitted step per sample batch, scaling over TPU meshes via shard_map.
+jitted step per sample batch, scaling over GPU meshes via shard_map.
 """
 
 from .version import __version__

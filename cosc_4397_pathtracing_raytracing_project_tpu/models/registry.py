@@ -1,16 +1,16 @@
 """Renderer model registry.
 
 Each entry corresponds to one of the reference project's benchmark
-configurations (`README.md:30-59`, BASELINE.md), re-designed TPU-first:
+configurations (`README.md:30-59`, BASELINE.md), re-designed for XLA:
 
 - ``naive``       — brute-force all-primitive intersection, readable XLA
                     pipeline (reference "Naive" row).
-- ``shared``      — SoA fast path; the TPU analog of the reference's
-                    "shared memory + coalesced" optimizations (on-chip
-                    material/scene constants, layout-optimal access).
+- ``shared``      — SoA fast path; the analog of the reference's
+                    "shared memory + coalesced" optimizations (material/
+                    scene constants folded into the fused kernels,
+                    unit-stride per-component access).
 - ``bvh``         — BVH-accelerated intersection with stackless threaded
                     traversal (reference "BVH" row).
-- ``megakernel``  — single-dispatch Pallas kernel, the "best" configuration.
 - ``wavefront``   — explicit pixel-index wavefront with optional stream
                     compaction / material sorting (the reference's attempted
                     experiments, done correctly).
@@ -19,8 +19,7 @@ configurations (`README.md:30-59`, BASELINE.md), re-designed TPU-first:
 from __future__ import annotations
 
 import dataclasses
-from functools import partial
-from typing import Callable, Dict, Optional
+from typing import Dict, Optional
 
 import jax
 
@@ -63,7 +62,7 @@ register(
 register(
     ModelSpec(
         "shared",
-        "SoA fast path (TPU analog of shared-mem + coalesced)",
+        "SoA fast path (analog of shared-mem + coalesced)",
         {"pipeline": "fast"},
     )
 )
@@ -72,13 +71,6 @@ register(
         "bvh",
         "BVH-accelerated intersection (stackless threaded traversal)",
         {"pipeline": "reference", "intersector": "bvh"},
-    )
-)
-register(
-    ModelSpec(
-        "megakernel",
-        "single-dispatch Pallas megakernel (best)",
-        {"pipeline": "pallas"},
     )
 )
 register(
@@ -107,7 +99,7 @@ def make_renderer(
             # its step bypasses trace_sample, so nee would silently no-op
             raise ValueError(
                 "nee is not supported by the wavefront-compaction model — "
-                "use 'auto', 'megakernel', 'shared' or 'bvh'"
+                "use 'auto', 'shared', 'naive' or 'bvh'"
             )
         overrides = {"pipeline": "reference"}
     cfg = dataclasses.replace(base, **overrides)

@@ -14,10 +14,10 @@ array can be *reordered freely between bounces*:
 - ``sort_material``: group paths by hit material id (the reference's broken
   experiment — correct here because pixel identity travels with the path).
 
-On a TPU, masked lanes cost the same as live ones, so sorting buys locality
-only, not occupancy — unlike a warp-based GPU. The options exist for parity
-and for honest benchmarking of that claim; `none` is the default and the
-fastest in practice (see docs/PARITY.md).
+Under XLA every lane of a whole-array op is computed whether its path is
+alive or not, so sorting buys locality only, not occupancy (what the
+reference's warp-level compaction was after). The options exist for parity
+and for benchmarking that claim; `none` is the default.
 """
 
 from __future__ import annotations

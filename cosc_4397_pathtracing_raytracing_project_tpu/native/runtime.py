@@ -2,7 +2,7 @@
 
 The reference's host runtime is C++ (scene parsing `src/scene.cpp`, BVH
 construction `src/pathtrace.cu:23-111`, PNG encoding via stb). This module
-loads the TPU-framework's C++ equivalents when built (see native/src and
+loads this framework's C++ equivalents when built (see native/src and
 native/build.sh) and exposes ``available()`` so every caller has a pure
 Python/NumPy fallback — tests and rendering never require the native build.
 """

@@ -1,8 +1,8 @@
-// Native host runtime for the TPU path tracing framework.
+// Native host runtime for the JAX path tracing framework.
 //
 // The reference's host runtime is C++ (scene loading `src/scene.cpp`, BVH
 // construction `src/pathtrace.cu:23-111`, PNG encoding via vendored stb).
-// This library provides the TPU framework's equivalents behind a C ABI
+// This library provides the framework's equivalents behind a C ABI
 // consumed via ctypes (native/runtime.py); every entry point has a pure
 // Python fallback, so the build is an optimization, not a requirement.
 //

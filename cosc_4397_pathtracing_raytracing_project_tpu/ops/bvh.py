@@ -7,19 +7,21 @@ then a recursive median split on the longest axis of the *centroid* bounding
 box with primitives sorted by centroid (`buildBVHRecursive`, `:52-99`).
 Nodes are emitted in preorder, so the left child is always ``index + 1``.
 
-TPU-native traversal redesign: the reference walks the tree with an explicit
+Traversal redesign: the reference walks the tree with an explicit
 per-thread ``int stack[64]`` (`computeIntersections`, `:288-333`). A stack
-per vector lane is hostile to a SIMD machine, so the tree is *threaded*
-instead: each node stores a ``miss_link`` — the preorder successor of its
+per lane does not vectorize as whole-array XLA ops, so the tree is
+*threaded* instead: each node stores a ``miss_link`` — the preorder successor of its
 subtree — and traversal becomes a single forward-moving pointer per lane:
 
     next = hit_box ? (leaf ? miss : index+1) : miss
 
 executed for all rays as one ``lax.while_loop`` over ``[N]`` arrays with
 row-gathers into the flattened node table. Like the reference, no
-ordered/near-child descent and no t-based node culling is performed; the
-visit set is identical, so results match the brute-force intersector bit-
-for-bit (modulo float reassociation).
+ordered/near-child descent is performed. Analytic walks do no t-based node
+culling either, so their visit set is identical; triangle walks skip boxes
+entered beyond the current nearest hit, which never changes the winner
+(see ``_traverse``). Results match the brute-force intersector bit-for-bit
+(modulo float reassociation).
 
 The AABB slab test replicates ``intersectAABB`` (`:113-128`): tmin starts at
 0, tmax at FLT_MAX, slabs swapped by direction sign, miss when
@@ -51,6 +53,15 @@ from .intersect import (
 )
 
 _FMAX = np.float32(3.402823466e38)
+
+# Primitives per leaf for every traversal here (both intersectors, and
+# RenderConfig.bvh_leaf_size's default). Each traversal step runs
+# `leaf_size` candidate tests on every lane, so a step's cost grows with
+# the leaf faster than the step count falls: on mesh1080p (1920×1080,
+# depth 8) on one H100 80GB HBM3 at 700 W, leaf 1 / 2 / 4 ran the
+# reference pipeline at 2.59 / 2.07 / 1.66 M rays/s
+# (`scripts/bench_mesh.py --compare`).
+LEAF_SIZE = 1
 
 
 # ─────────────────────────── host build ───────────────────────────
@@ -208,15 +219,8 @@ class BVHIntersector:
     Analytic primitives (cubes + spheres) share one BVH; triangles get their
     own (they are a mesh extension with world-space data)."""
 
-    def __init__(self, scene: Scene, leaf_size: int = 4, tri_method: str = "auto"):
+    def __init__(self, scene: Scene, leaf_size: int = LEAF_SIZE):
         self.leaf_size = leaf_size
-        if tri_method == "auto":
-            try:
-                on_tpu = jax.devices()[0].platform not in ("cpu", "gpu")
-            except Exception:
-                on_tpu = False
-            tri_method = "pallas" if on_tpu else "while"
-        self.tri_method = tri_method
         kc, ks = scene.cubes.count, scene.spheres.count
         self._has_analytic = (kc + ks) > 0
         if self._has_analytic:
@@ -287,15 +291,6 @@ class BVHIntersector:
             self.tri_geo = jnp.asarray(
                 np.asarray(scene.triangles.geom_index)[torder], jnp.int32
             )
-            if self.tri_method.startswith("pallas"):
-                from .pallas.mesh_kernel import ClusterMeshIntersector
-
-                self._cluster = ClusterMeshIntersector(
-                    v0[torder],
-                    e1[torder],
-                    e2[torder],
-                    interpret=self.tri_method == "pallas_interpret",
-                )
 
     # the engine calls intersectors as f(scene, origins, directions)
     def __call__(self, scene: Scene, origins, directions) -> Hit:
@@ -315,19 +310,16 @@ class BVHIntersector:
         tri_t = jnp.full((n,), _MISS)
         tri_p = jnp.full((n,), -1, jnp.int32)
         if self._has_tris:
-            if self.tri_method.startswith("pallas"):
-                tri_t, tri_p = self._cluster(origins, directions)
-                tri_t = jnp.where(tri_p < 0, _MISS, tri_t)
-            else:
-                tri_t, tri_p = _traverse(
-                    self.tri_bvh,
-                    origins,
-                    directions,
-                    lambda pid, mask, o, d: _tri_candidate_t(self, pid, mask, o, d),
-                    self.leaf_size,
-                    tri_t,
-                    tri_p,
-                )
+            tri_t, tri_p = _traverse(
+                self.tri_bvh,
+                origins,
+                directions,
+                lambda pid, mask, o, d: _tri_candidate_t(self, pid, mask, o, d),
+                self.leaf_size,
+                tri_t,
+                tri_p,
+                cull=True,
+            )
         return self._finalize(origins, directions, best_t, best_p, tri_t, tri_p)
 
     def _finalize(self, origins, directions, best_t, best_p, tri_t, tri_p):
@@ -475,8 +467,18 @@ def _traverse(
     leaf_size: int,
     best_t,
     best_p,
+    active=None,
+    cull: bool = False,
 ):
-    """Threaded stackless traversal over all rays simultaneously."""
+    """Threaded stackless traversal over all rays simultaneously.
+
+    `active` ([N] bool, optional) starts dead lanes already finished.
+    `cull` also skips boxes entered at or beyond the lane's current nearest
+    hit — exact for candidates whose distance is never below their box's
+    entry distance (raw triangle t in padded boxes), so the winner is
+    unchanged and lanes finish sooner. Analytic candidates are backed off
+    from the surface (t − _BACKOFF), which can sit below the entry of a
+    neighbouring box, so their traversal does not cull."""
     n = origins.shape[0]
     k = bvh.num_nodes
     inv_d = 1.0 / directions  # IEEE inf for axis-parallel, as the reference
@@ -498,6 +500,8 @@ def _traverse(
         tmin = jnp.maximum(jnp.max(lo, axis=-1), 0.0)
         tmax = jnp.minimum(jnp.min(hi, axis=-1), np.float32(_FMAX))
         box_hit = tmax > tmin
+        if cull:
+            box_hit = box_hit & (tmin < best_t)
 
         start = jnp.take(bvh.leaf_start, node)
         count = jnp.take(bvh.leaf_count, node)
@@ -519,9 +523,91 @@ def _traverse(
         return idx, best_t, best_p
 
     idx0 = jnp.zeros((n,), jnp.int32)
+    if active is not None:
+        idx0 = jnp.where(active, idx0, k)
     _, best_t, best_p = jax.lax.while_loop(cond, body, (idx0, best_t, best_p))
     return best_t, best_p
 
 
-def make_bvh_intersector(scene: Scene, leaf_size: int = 4) -> BVHIntersector:
+def make_bvh_intersector(
+    scene: Scene, leaf_size: int = LEAF_SIZE
+) -> BVHIntersector:
     return BVHIntersector(scene, leaf_size=leaf_size)
+
+
+class BVHMeshIntersector:
+    """Triangle nearest-hit for the SoA mesh pipeline (ops.fast.
+    trace_sample_mesh): the threaded-BVH traversal above, with distance
+    culling, behind the component interface the pipeline calls.
+
+    Built from triangle arrays in any order (``v0``/``e1``/``e2`` [T, 3],
+    ``material_id`` [T]); the BVH permutes them into leaf order internally
+    and reports hits by the caller's index. ``t`` is the raw Möller–Trumbore
+    distance of a hit (``> _BACKOFF``), ``_MISS`` when nothing is hit.
+
+    Same traversal, leaf size and culling as BVHIntersector's triangle
+    walk (the reference pipeline's), so the two pipelines differ only in
+    what surrounds it."""
+
+    def __init__(self, v0, e1, e2, material_id=None, leaf_size: int = LEAF_SIZE):
+        v0 = np.asarray(v0, np.float32)
+        e1 = np.asarray(e1, np.float32)
+        e2 = np.asarray(e2, np.float32)
+        mat = (
+            np.zeros(len(v0), np.float32)
+            if material_id is None
+            else np.asarray(material_id, np.float32)
+        )
+        tmin = np.minimum(np.minimum(v0, v0 + e1), v0 + e2) - 1e-5
+        tmax = np.maximum(np.maximum(v0, v0 + e1), v0 + e2) + 1e-5
+        bvh = try_native_build(tmin, tmax, leaf_size) or build_bvh(
+            tmin, tmax, leaf_size
+        )
+        order = bvh.order
+        self.leaf_size = leaf_size
+        self.bvh = _device_bvh(bvh)
+        self.tri_v0 = jnp.asarray(v0[order])
+        self.tri_e1 = jnp.asarray(e1[order])
+        self.tri_e2 = jnp.asarray(e2[order])
+        # unnormalized geometric normal e1×e2; normalized per hit
+        self.tri_n = jnp.asarray(np.cross(e1, e2)[order])
+        self.tri_mat = jnp.asarray(mat[order])
+        self.tri_id = jnp.asarray(order, jnp.int32)
+
+    def _nearest(self, ox, oy, oz, dx, dy, dz, active):
+        n = ox.shape[0]
+        origins = jnp.stack([ox, oy, oz], axis=-1)
+        directions = jnp.stack([dx, dy, dz], axis=-1)
+        return _traverse(
+            self.bvh,
+            origins,
+            directions,
+            lambda pid, mask, o, d: _tri_candidate_t(self, pid, mask, o, d),
+            self.leaf_size,
+            jnp.full((n,), _MISS),
+            jnp.full((n,), -1, jnp.int32),
+            active=None if active is None else active.astype(bool),
+            cull=True,
+        )
+
+    def call_soa(self, ox, oy, oz, dx, dy, dz, active=None):
+        """(t, idx, nx, ny, nz, mat_f32) component arrays; idx = -1 on a
+        miss. The normal is the unit geometric normal flipped to face the
+        incoming ray. Lanes with ``active`` false are not traced (miss)."""
+        t, p = self._nearest(ox, oy, oz, dx, dy, dz, active)
+        pid = jnp.maximum(p, 0)
+        nrm = jnp.take(self.tri_n, pid, axis=0)
+        nx, ny, nz = nrm[:, 0], nrm[:, 1], nrm[:, 2]
+        facing = jnp.where(dx * nx + dy * ny + dz * nz < 0, 1.0, -1.0)
+        r = facing * jax.lax.rsqrt(
+            jnp.maximum(nx * nx + ny * ny + nz * nz, 1e-30)
+        )
+        idx = jnp.where(p >= 0, jnp.take(self.tri_id, pid), -1)
+        mat = jnp.take(self.tri_mat, pid)
+        return t, idx, nx * r, ny * r, nz * r, mat
+
+    def call_t(self, ox, oy, oz, dx, dy, dz, active=None) -> jnp.ndarray:
+        """Nearest-hit distance only (``_MISS`` when nothing is hit) — the
+        shadow-ray query."""
+        t, _ = self._nearest(ox, oy, oz, dx, dy, dz, active)
+        return t

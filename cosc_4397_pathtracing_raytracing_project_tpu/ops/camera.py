@@ -1,7 +1,7 @@
 """Pinhole camera ray generation (`src/pathtrace.cu:270-286`).
 
 Rays are produced directly as flat ``[N, 3]`` SoA arrays (pixel index
-``idx = x + y*width``) — the TPU redesign of the reference's per-thread
+``idx = x + y*width``) — the array form of the reference's per-thread
 PathSegment initialization. Optional sub-pixel jitter enables antialiasing
 (the reference shoots every sample through the same pixel corner).
 """
@@ -72,8 +72,8 @@ def thin_lens(
     everything else blurs with circle-of-confusion ∝ |depth − focal|.
     ``aperture == 0`` degenerates to the pinhole ray (up to one rounding
     of the re-normalization)."""
-    # componentwise dot (an einsum would default to bf16 MXU precision on
-    # TPU — geometry math stays exact f32 on the VPU)
+    # componentwise dot: an einsum at default precision may run as a TF32
+    # matmul on a GPU (10 mantissa bits) — geometry math stays exact f32
     ct = (
         directions[:, 0] * camera.view[0]
         + directions[:, 1] * camera.view[1]

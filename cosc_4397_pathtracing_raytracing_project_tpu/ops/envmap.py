@@ -7,16 +7,16 @@ This generalizes it to an arbitrary latitude-longitude radiance map with
 luminance-proportional importance sampling and MIS against BRDF sampling —
 the standard production-renderer IBL stack (PBRT's InfiniteAreaLight).
 
-TPU-shaped design decisions:
+Design decisions:
 
 - The 2D texel distribution is flattened and sampled through a
   Walker/Vose ALIAS TABLE: one uniform yields the texel in O(1) with two
-  row gathers. The standard alternatives are TPU-hostile — a marginal+
-  conditional CDF pair needs per-lane row-dependent [N, W] gathers, and a
-  flat-CDF ``jnp.searchsorted`` lowers to log₂(H·W) *sequential*
-  dynamic-slice rounds (measured ~800 ms per 800×800 NEE sample before
-  the alias table). The leftover conditional fraction of the draw is
-  re-used as the within-texel azimuth offset, one uniform cheaper.
+  row gathers. The standard alternatives cost more as whole-array ops — a
+  marginal+conditional CDF pair needs per-lane row-dependent [N, W]
+  gathers, and a flat-CDF ``jnp.searchsorted`` lowers to log₂(H·W)
+  *sequential* dynamic-slice rounds. The leftover conditional fraction of
+  the draw is re-used as the within-texel azimuth offset, one uniform
+  cheaper.
 - Texel weights use the texel's EXACT solid angle (cosθ₀ − cosθ₁ band
   integral), so the sampler's ``E[L/pdf]`` equals the Riemann texel sum of
   the map exactly — which the tests pin.
@@ -37,20 +37,21 @@ from typing import Callable
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
+
+from ..utils.pytree import PyTreeNode
 
 _TWO_PI = 6.283185307179586
 _PI = 3.14159265358979323846
 
 
-class EnvMap(struct.PyTreeNode):
+class EnvMap(PyTreeNode):
     """Device-side environment map + sampling tables (all dynamic leaves,
     so swapping maps of equal resolution never recompiles).
 
     Texel selection uses a Walker/Vose ALIAS TABLE, not a CDF binary
-    search: on TPU, ``jnp.searchsorted`` lowers to log₂(H·W) sequential
-    dynamic-slice rounds (~15 for a 128×256 map) and measured ~800 ms per
-    800×800 sample in env NEE; the alias draw is two row gathers, O(1)."""
+    search: ``jnp.searchsorted`` lowers to log₂(H·W) sequential
+    dynamic-slice rounds (~15 for a 128×256 map); the alias draw is two
+    row gathers, O(1)."""
 
     img: jnp.ndarray  # (H, W, 3) f32 linear radiance
     alias_prob: jnp.ndarray  # (H*W,) f32 stay-probability per cell
@@ -268,156 +269,3 @@ def sample_env(env: EnvMap, u1: jnp.ndarray, u2: jnp.ndarray):
     radiance = jnp.take(env.img.reshape(n_tex, 3), idx, axis=0) * env.strength
     pdf = jnp.take(env.pdf.reshape(-1), idx)
     return d, radiance, pdf
-
-
-# ────────────────────── sun/sky split (megakernel mode) ──────────────────────
-#
-# For maps past the megakernel's in-kernel budget (MAX_ENV_EXACT_TEXELS —
-# the one-hot MXU gather's cost scales with texel count and the compiler
-# gives out past 256×512), `env_mode='split'` decomposes the map into
-# machine-friendly pieces (the classic production sun/sky split):
-#   • SUNS: the top-K texels holding ≥ `thresh`× the mean luminance become
-#     delta directional lights (direction = texel center, irradiance
-#     E = L·Δω). Sampled deterministically at every diffuse vertex with one
-#     any-hit shadow ray each — no RNG, no MIS (delta lights have no BRDF
-#     competitor of nonzero measure).
-#   • SKY: the residual map (suns zeroed) projects onto 9 real spherical
-#     harmonics per channel — pure VPU math in-kernel (9 shared basis
-#     values + 9 MACs/channel). For DIFFUSE receivers the order-2 SH
-#     irradiance error is ≤3% (Ramamoorthi & Hanrahan 2001), so indirect
-#     sky lighting is near-exact; specular secondary rays see a blurred
-#     sky (and lose delta-sun glints) — the documented approximation.
-#   • BACKGROUND: primary rays are iteration-invariant without AA/DOF, so
-#     the camera-visible environment is composited OUTSIDE the kernel from
-#     the exact bilinear map, once per dispatch — full-fidelity backdrop.
-
-_SH_C = (
-    0.2820947917738781,  # Y00
-    0.4886025119029199,  # Y1-1, Y10, Y11 (· y, z, x)
-    1.0925484305920792,  # Y2-2, Y2-1, Y21 (· xy, yz, xz)
-    0.31539156525252005,  # Y20 (· 3z²−1)
-    0.5462742152960396,  # Y22 (· x²−y²)
-)
-
-
-def sh9_basis(d):
-    """The 9 real SH basis values for unit direction(s) d[..., 3]."""
-    x, y, z = d[..., 0], d[..., 1], d[..., 2]
-    c = _SH_C
-    return [
-        jnp.full(x.shape, c[0]) if hasattr(x, "shape") else c[0],
-        c[1] * y, c[1] * z, c[1] * x,
-        c[2] * x * y, c[2] * y * z,
-        c[3] * (3.0 * z * z - 1.0),
-        c[2] * x * z,
-        c[4] * (x * x - y * y),
-    ]
-
-
-def split_envmap(
-    img: np.ndarray, max_suns: int = 8, thresh: float = 32.0
-):
-    """Host-side sun/sky decomposition of an [H, W, 3] map.
-
-    Returns ``(suns, sh)`` where ``suns`` is a tuple of
-    ``(dx, dy, dz, Er, Eg, Eb)`` float tuples (delta-light irradiance
-    E = L·Δω) and ``sh`` is a 3-tuple of 9-coefficient tuples (per-channel
-    least-squares SH projection of the residual). Pure floats — usable as
-    jit-immediate static tables (megakernel STATIC_TABLES style).
-
-    Warns when more than ``max_suns`` texels pass ``thresh``: the leftovers
-    stay in the residual, which the clamped SH-9 fit represents poorly —
-    raise ``max_suns`` (RenderConfig.env_split_suns) or render with
-    env_mode='exact'."""
-    img = np.asarray(img, np.float64)
-    h, w = img.shape[:2]
-    lum = 0.2126 * img[..., 0] + 0.7152 * img[..., 1] + 0.0722 * img[..., 2]
-    theta_edges = np.linspace(0.0, _PI, h + 1)
-    band = np.cos(theta_edges[:-1]) - np.cos(theta_edges[1:])
-    omega = band[:, None] * (2 * np.pi / w)  # (H,1) per-texel solid angle
-
-    residual = img.copy()
-    suns = []
-    mean_lum = max(float(lum.mean()), 1e-12)
-    candidates = np.argwhere(lum > thresh * mean_lum)
-    if len(candidates) > max_suns:
-        import warnings
-
-        warnings.warn(
-            f"split_envmap: {len(candidates)} texels exceed "
-            f"{thresh}x mean luminance but only max_suns={max_suns} become "
-            "delta lights; the rest fold into the SH-9 residual, degrading "
-            "split-mode quality. Raise RenderConfig.env_split_suns or use "
-            "env_mode='exact'.",
-            stacklevel=2,
-        )
-    if len(candidates):
-        energies = lum[candidates[:, 0], candidates[:, 1]] * omega[
-            candidates[:, 0], 0
-        ]
-        order = np.argsort(energies)[::-1][:max_suns]
-        for yi, xi in candidates[order]:
-            u = (xi + 0.5) / w
-            v = (yi + 0.5) / h
-            th = v * np.pi
-            ph = (u - 0.5) * 2 * np.pi
-            d = (
-                np.sin(th) * np.sin(ph),
-                np.cos(th),
-                -np.sin(th) * np.cos(ph),
-            )
-            e = img[yi, xi] * omega[yi, 0]
-            suns.append(
-                (float(d[0]), float(d[1]), float(d[2]),
-                 float(e[0]), float(e[1]), float(e[2]))
-            )
-            residual[yi, xi] = 0.0
-
-    # least-squares SH projection of the residual: c_i = ∫ L·Y_i dω,
-    # evaluated at texel centers (exact for the piecewise-constant map up
-    # to the basis functions' within-texel variation)
-    ys = (np.arange(h) + 0.5) / h
-    xs = (np.arange(w) + 0.5) / w
-    th = ys * np.pi
-    ph = (xs - 0.5) * 2 * np.pi
-    st, ct = np.sin(th)[:, None], np.cos(th)[:, None]
-    x = st * np.sin(ph)[None, :]
-    y = np.broadcast_to(ct, (h, w))
-    z = -st * np.cos(ph)[None, :]
-    c = _SH_C
-    basis = np.stack(
-        [
-            np.full((h, w), c[0]),
-            c[1] * y, c[1] * z, c[1] * x,
-            c[2] * x * y, c[2] * y * z,
-            c[3] * (3.0 * z * z - 1.0),
-            c[2] * x * z,
-            c[4] * (x * x - y * y),
-        ]
-    )  # (9, H, W)
-    weighted = residual * omega[..., None]  # (H, W, 3)
-    coeffs = np.einsum("bhw,hwc->cb", basis, weighted)  # (3, 9)
-    sh = tuple(tuple(float(v) for v in row) for row in coeffs)
-    return tuple(suns), sh
-
-
-def sh9_eval(sh, x, y, z):
-    """Evaluate the per-channel SH-9 fit at unit direction components —
-    shared basis then 9 MACs per channel; shaped for the Pallas kernel
-    (plain arithmetic on whatever array type x/y/z are)."""
-    c = _SH_C
-    b = (
-        c[0],
-        c[1] * y, c[1] * z, c[1] * x,
-        c[2] * x * y, c[2] * y * z,
-        c[3] * (3.0 * z * z - 1.0),
-        c[2] * x * z,
-        c[4] * (x * x - y * y),
-    )
-    out = []
-    for ch in sh:
-        acc = ch[0] * b[0]
-        for i in range(1, 9):
-            acc = acc + ch[i] * b[i]
-        out.append(acc)
-    return out

@@ -2,11 +2,12 @@
 
 Semantically equivalent to ops.intersect + ops.shade (same reference
 semantics, see those modules for the `pathtrace.cu` / `intersections.h`
-citations), re-expressed for the TPU VPU:
+citations), re-expressed as elementwise array code that XLA fuses into a
+few kernels per bounce — the form of the reference's one-thread-per-path
+``computeIntersections`` + ``shadeMaterial`` kernels:
 
-- every quantity is a flat ``[N]`` float32 array (x/y/z as separate arrays).
-  ``[N, 3]``-style arrays put a size-3 axis in the lane dimension, wasting
-  125/128 lanes of every vector register and padding HBM tiles ~42×;
+- every quantity is a flat ``[N]`` float32 array (x/y/z as separate arrays):
+  unit-stride, coalesced loads per component, no size-3 minor axis;
 - the primitive loop is unrolled in Python (static K) with a running
   nearest-hit — no ``[N, K]`` materialization, no gathers: the winning
   normal/material are carried through ``where`` selects;
@@ -219,8 +220,9 @@ def intersect_unrolled(scene: Scene, ox, oy, oz, dx, dy, dz) -> _Best:
 
 
 def _select_material(materials, mat_id):
-    """Unrolled per-lane material fetch (the VMEM-resident analog of the
-    reference's shared-memory material cache)."""
+    """Unrolled per-lane material fetch (material constants fold into the
+    fused kernel — the analog of the reference's shared-memory material
+    cache)."""
     m = materials.color.shape[0]
     fields = dict(
         cr=0.0, cg=0.0, cb=0.0, sr=0.0, sg=0.0, sb=0.0, refl=0.0, refr=0.0,
@@ -289,6 +291,7 @@ def trace_sample_fast(
     pixel_offset=0,
     num_pixels=None,
     light_sampler=None,
+    pixels=None,
 ):
     """Full per-sample wavefront (raygen → bounce loop → radiance), SoA.
 
@@ -300,12 +303,22 @@ def trace_sample_fast(
     nee branch (componentwise SoA form). Environment-map scenes
     (scene.envmap) swap the gradient sky for the HDR lookup and, with
     ``config.nee``, importance-sample the map (ops/envmap.py) — the SoA
-    twin of shade_step's env branches."""
+    twin of shade_step's env branches.
+
+    ``pixels`` ([N] int32 global pixel ids, any order, repeats allowed)
+    traces those pixels instead of a contiguous slice; ``iteration`` may
+    then be an [N] array (one sample index per lane), and every random
+    draw is keyed by (pixel, iteration) alone, so a pixel's sample stream
+    is independent of which lane traces it (render.adaptive's tiles)."""
     from . import rng as rng_ops
 
     cam = scene.camera
     w, h = cam.resolution
-    n = num_pixels if num_pixels is not None else cam.pixel_count
+    keyed = pixels is not None
+    if keyed:
+        n = pixels.shape[0]
+    else:
+        n = num_pixels if num_pixels is not None else cam.pixel_count
     legacy = config.gather_mode == "throughput"
     env = scene.envmap
     want_nee = bool(getattr(config, "nee", False))
@@ -326,15 +339,20 @@ def trace_sample_fast(
     # same stream a full-frame render would); deeper bounces stay threefry.
     use_ld = getattr(config, "sampler", "independent") == "sobol"
 
-    idx = pixel_offset + jnp.arange(n, dtype=jnp.int32)
+    if keyed:
+        idx = pixels.astype(jnp.int32)
+        cam_u = rng_ops.hash_camera_uniforms(base_key, iteration, idx)
+    else:
+        idx = pixel_offset + jnp.arange(n, dtype=jnp.int32)
     px = (idx % w).astype(jnp.float32)
     py = (idx // w).astype(jnp.float32)
     if config.antialias:
-        jit2 = (
-            rng_ops.ld_pixel_jitter(base_key, iteration, idx)
-            if use_ld
-            else rng_ops.pixel_jitter(base_key, iteration, n)
-        )
+        if use_ld:
+            jit2 = rng_ops.ld_pixel_jitter(base_key, iteration, idx)
+        elif keyed:
+            jit2 = cam_u[:, 0:2]
+        else:
+            jit2 = rng_ops.pixel_jitter(base_key, iteration, n)
         px = px + jit2[:, 0]
         py = py + jit2[:, 1]
     sx = cam.pixel_length[0] * (px - 0.5 * w)
@@ -348,11 +366,12 @@ def trace_sample_fast(
     oy = jnp.broadcast_to(cam.position[1], (n,))
     oz = jnp.broadcast_to(cam.position[2], (n,))
     if getattr(config, "dof", False):
-        lens2 = (
-            rng_ops.ld_lens_uniforms(base_key, iteration, idx)
-            if use_ld
-            else rng_ops.lens_uniforms(base_key, iteration, n)
-        )
+        if use_ld:
+            lens2 = rng_ops.ld_lens_uniforms(base_key, iteration, idx)
+        elif keyed:
+            lens2 = cam_u[:, 2:4]
+        else:
+            lens2 = rng_ops.lens_uniforms(base_key, iteration, n)
         ox, oy, oz, dx, dy, dz = _thin_lens_soa(
             cam, ox, oy, oz, dx, dy, dz, lens2[:, 0], lens2[:, 1]
         )
@@ -372,7 +391,9 @@ def trace_sample_fast(
 
     def bounce(carry, depth, u=None, nee_u=None):
         (ox, oy, oz, dx, dy, dz) = carry[:6]
-        if u is None:
+        if u is None and keyed:
+            u = rng_ops.hash_bounce_uniforms(base_key, iteration, depth, idx)
+        elif u is None:
             key = rng_ops.bounce_key(base_key, iteration, depth)
             u = jax.random.uniform(key, (rng_ops.NUM_LANES, n), jnp.float32)
         best = intersect_unrolled(scene, ox, oy, oz, dx, dy, dz)
@@ -381,17 +402,17 @@ def trace_sample_fast(
             scene, sx, sy, sz, wx, wy, wz
         ).t
         if use_area_nee:
-            nee = (
-                light_sampler,
-                shadow_t,
-                nee_u
-                if nee_u is not None
-                else rng_ops.nee_uniforms(base_key, iteration, depth, n),
-            )
+            if nee_u is None and keyed:
+                nee_u = rng_ops.hash_nee_uniforms(base_key, iteration, depth, idx)
+            elif nee_u is None:
+                nee_u = rng_ops.nee_uniforms(base_key, iteration, depth, n)
+            nee = (light_sampler, shadow_t, nee_u)
         if use_env_nee:
             env_nee = (
                 shadow_t,
-                rng_ops.env_uniforms(base_key, iteration, depth, n),
+                rng_ops.hash_env_uniforms(base_key, iteration, depth, idx)
+                if keyed
+                else rng_ops.env_uniforms(base_key, iteration, depth, n),
             )
         return shade_soa(
             carry, best, u, scene.materials, depth, config, nee=nee,
@@ -719,7 +740,7 @@ def shade_soa(carry, best: _Best, u, materials, depth, config, nee=None,
     return out + (prev_pdf,) if carry_pdf else out
 
 def supports_mesh(scene: Scene) -> bool:
-    """Mesh SoA pipeline: triangles via the cluster kernel + unrolled
+    """Mesh SoA pipeline: triangles via a BVH intersector + unrolled
     analytic primitives."""
     return (
         scene.triangles.count > 0
@@ -732,11 +753,10 @@ def supports_mesh(scene: Scene) -> bool:
 def _block_order(w: int, h: int, block: int = 32) -> np.ndarray:
     """Pixel visit permutation grouping ``block``×``block`` screen rects.
 
-    Linear pixel order puts 1024 *consecutive scanline* pixels in one ray
-    tile of the cluster kernel — a frustum half the screen wide and one
-    pixel tall that overlaps most of the scene's clusters. Visiting pixels
-    block-by-block makes each tile a compact screen rect, so tile-level
-    AABB culling actually culls on primary rays. Returned as int32 [w*h]:
+    Linear pixel order puts long runs of *consecutive scanline* pixels
+    next to each other — a frustum half the screen wide and one pixel tall.
+    Visiting pixels block-by-block makes neighbouring rays a compact screen
+    rect, so they walk similar BVH paths. Returned as int32 [w*h]:
     entry i is the linear pixel id the i-th ray handles. Stable argsort
     keeps row-major order inside a block (ragged edge blocks are simply
     smaller)."""
@@ -751,19 +771,20 @@ def trace_sample_mesh(
     config,
     base_key,
     iteration,
-    cluster_isect,
+    tri_isect,
     pixel_offset=0,
     num_pixels=None,
     light_sampler=None,
 ):
-    """SoA wavefront for triangle-mesh scenes: per bounce, the cluster-culled
-    Pallas kernel handles triangles (emitting winner t/normal/material
-    in-kernel) and the unrolled loop handles analytic primitives; results
-    merge by nearest t and feed the shared shade_soa stage.
+    """SoA wavefront for triangle-mesh scenes: per bounce, ``tri_isect``
+    (ops.bvh.BVHMeshIntersector: winner t/normal/material through
+    ``call_soa``, shadow distances through ``call_t``) handles triangles
+    and the unrolled loop handles analytic primitives; results merge by
+    nearest t and feed the shared shade_soa stage.
 
     With ``config.nee`` a ``light_sampler`` over the scene's ANALYTIC
     emitters must be supplied; the shadow ray then tests triangles through
-    the cluster kernel and analytic primitives through the unrolled loop
+    ``tri_isect.call_t`` and analytic primitives through the unrolled loop
     (one extra nearest-hit pass per bounce). Emissive TRIANGLES stay
     BRDF-sampled — the sampler does not cover them, so their MIS weight
     is exactly 1 and the estimator stays unbiased."""
@@ -784,15 +805,15 @@ def trace_sample_mesh(
     has_analytic = scene.cubes.count + scene.spheres.count > 0
     do_sort = getattr(config, "mesh_ray_sort", True) and not legacy
     if do_sort and w * h >= (1 << 24):
-        # (global) pixel ids ride the packed [N, 14] f32 gather; above 2^24
-        # they are no longer exactly representable in f32 and radiance would
-        # scatter to wrong pixels. 16.7M pixels = beyond 8K frames; use the
-        # fused sort (int-native) or tile the frame externally. (No-sort
-        # configurations never cast pixel ids to f32 — no guard needed.)
+        # (global) pixel ids ride the packed [N, 14] f32 gather; from 2^24
+        # on they are no longer exactly representable in f32 and radiance
+        # would scatter to wrong pixels. 16.7M pixels = beyond 8K frames;
+        # use the fused sort (int-native) or tile the frame externally.
+        # (No-sort configurations never cast pixel ids to f32.)
         if not getattr(config, "mesh_sort_fused", False):
             raise ValueError(
-                f"frames with {w * h} pixels need mesh_sort_fused=True "
-                "(pixel ids exceed exact f32 range)"
+                f"frames with {w * h} pixels (>= 2^24) need "
+                "mesh_sort_fused=True (pixel ids exceed exact f32 range)"
             )
     # Block-ordered primary rays: only when the final unsort already exists
     # (do_sort) and this call renders the full frame (the sharded path hands
@@ -891,12 +912,10 @@ def trace_sample_mesh(
         cell_scale = float(cells) / jnp.maximum(hi - lo, 1e-3)
 
     def sort_rays(carry, pixel):
-        """Reorder the wavefront by (origin cell, direction octant) so ray
-        tiles stay coherent and the cluster kernel's tile-level culling keeps
-        working on incoherent secondary bounces. Image-invariant because
-        radiance scatters back through pixel indices at the end (finalGather
-        architecture) — this is the stream 'compaction' that actually pays
-        on a TPU."""
+        """Reorder the wavefront by (origin cell, direction octant) so
+        neighbouring rays stay coherent on incoherent secondary bounces.
+        Image-invariant because radiance scatters back through pixel
+        indices at the end (finalGather architecture)."""
         (ox, oy, oz, dx, dy, dz, cr, cg, cb, bounces,
          rr_, rg_, rb_) = carry[:13]
         prev = carry[13] if use_nee else None
@@ -917,9 +936,8 @@ def trace_sample_mesh(
         key9 = jnp.where(alive, key9, jnp.int32(dead_key))  # dead lanes last
         if getattr(config, "mesh_sort_fused", False):
             # one fused stable sort carrying all 14 payload operands: the
-            # sort network moves payloads in vector form instead of the
-            # argsort + [N, 14] row gather (XLA's TPU gather is ~60× off
-            # memory speed-of-light). Stable + same key ⇒ identical
+            # sort moves payloads with the keys instead of an argsort +
+            # [N, 14] row gather. Stable + same key ⇒ identical
             # permutation to the argsort path; ints ride natively (no f32
             # round-trip, so no 2^24 pixel-id ceiling on this path).
             ops_ = [key9, ox, oy, oz, dx, dy, dz, cr, cg, cb, bounces,
@@ -938,8 +956,7 @@ def trace_sample_mesh(
             perm = jnp.sort(packed_key) & jnp.int32((1 << 21) - 1)
         else:
             perm = jnp.argsort(key9)
-        # one row-gather for the whole wavefront (separate [N] gathers cost
-        # ~16 ms each; a packed [N, 14] gather costs one)
+        # one row-gather for the whole wavefront instead of 14 [N] gathers
         cols_in = [ox, oy, oz, dx, dy, dz, cr, cg, cb,
                    bounces.astype(jnp.float32), rr_, rg_, rb_]
         if use_nee:
@@ -953,7 +970,7 @@ def trace_sample_mesh(
         return carry, cols[-1].astype(jnp.int32)
 
     def intersect_combined(ox, oy, oz, dx, dy, dz, alive) -> _Best:
-        t, ti, nx, ny, nz, mat_f = cluster_isect.call_soa(
+        t, ti, nx, ny, nz, mat_f = tri_isect.call_soa(
             ox, oy, oz, dx, dy, dz, active=alive
         )
         tri_hit = ti >= 0
@@ -989,8 +1006,7 @@ def trace_sample_mesh(
         (ox, oy, oz, dx, dy, dz, _cr, _cg, _cb, bounces, *_rest) = carry
         # Pixel-keyed hash uniforms: the RNG stream follows the PIXEL id
         # through any reorder (the project's pixel-keyed-RNG invariant), and
-        # costs no gather — threefry + a [lanes, n] take was ~70 ms/bounce
-        # at 2M rays. The LD lattice (sampler='sobol', leading ld_depths
+        # costs no gather (threefry draws would need a [lanes, n] take). The LD lattice (sampler='sobol', leading ld_depths
         # bounces; ld_depth ≥ 0 selects its static per-depth tags) is
         # pixel-keyed the same way, so the invariant holds under it too.
         if ld_depth >= 0:
@@ -1007,11 +1023,9 @@ def trace_sample_mesh(
         nee = None
         if use_nee:
             def shadow_t(sx, sy, sz, wx, wy, wz):
-                # t-only cluster-kernel variant (mode='tmin'): no winner
-                # payloads, 1 output — dodges the scoped-vmem blowup of
-                # two full 6-output kernels per bounce and skips 10 ops
-                # per triangle test; dead lanes keep tile-level skipping
-                st = cluster_isect.call_t(
+                # distance-only query: no winner payload gathers; dead
+                # lanes are not traced
+                st = tri_isect.call_t(
                     sx, sy, sz, wx, wy, wz, active=alive
                 )
                 if has_analytic:
@@ -1087,8 +1101,7 @@ def trace_sample_mesh(
         return jnp.stack([cr, cg, cb], axis=-1)
     if do_sort:
         # finalGather: radiance back to pixel order. `pixel` is a
-        # permutation, so the scatter-add is an inverse-permutation gather
-        # (~200 ms vs ~45 ms at 2M rays: argsort + row take).
+        # permutation, so the scatter-add is an inverse-permutation gather.
         if getattr(config, "mesh_sort_fused", False):
             # fused variant: sort by pixel id with RGB as payloads — the
             # sort network does the unsort without the argsort + [N, 3]

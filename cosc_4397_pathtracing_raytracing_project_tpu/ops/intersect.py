@@ -7,11 +7,11 @@ off by 1e-4 (`getPointOnRay`, `intersections.h:27-29`), and the returned ``t``
 is the *world-space distance* from the ray origin to the (backed-off) hit
 point, which is what candidate hits are compared by (`pathtrace.cu:314`).
 
-TPU-native design: instead of one divergent thread per ray branching over
+Array design: instead of one divergent thread per ray branching over
 primitive types (`pathtrace.cu:311-313`), primitives are partitioned by type
-into dense batches and tested as ``[N, K]`` vector ops. Phase 1 computes only
+into dense batches and tested as ``[N, K]`` array ops. Phase 1 computes only
 the candidate distances; phase 2 gathers the winning primitive's matrices via
-a one-hot matmul (MXU-friendly for the small tables involved) and reconstructs
+a one-hot matmul (dense for the small tables involved) and reconstructs
 the hit point / normal for the winner only — avoiding ``K×`` memory traffic
 for per-candidate normals.
 """
@@ -22,7 +22,8 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from ..utils.pytree import PyTreeNode
 
 from ..scene.structs import GeomBatch, Scene, TriangleBatch
 from . import linalg
@@ -32,7 +33,7 @@ _FMAX = 3.402823466e38  # FLT_MAX, as in the reference slab test
 _MISS = 1e30  # internal sentinel for "no hit" distances
 
 
-class Hit(struct.PyTreeNode):
+class Hit(PyTreeNode):
     """SoA intersection record (`ShadeableIntersection`, `sceneStructs.h:75-83`).
 
     ``t`` is the world-space distance (>= 0 when hit); misses are flagged by
@@ -51,8 +52,9 @@ def take_rows(table: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
     """Gather rows of a small table per ray via one-hot matmul.
 
     ``table``: (K, ...), ``idx``: (N,) int32 → (N, ...). For the small tables
-    here (K = a few dozen primitives / materials) a one-hot contraction maps
-    onto the MXU and beats a scatter/gather on TPU."""
+    here (K = a few dozen primitives / materials) a one-hot contraction is a
+    dense matmul. It must run at HIGHEST precision: a GPU's default may be
+    TF32 (10 mantissa bits), which would round the gathered matrices."""
     k = table.shape[0]
     flat = table.reshape(k, -1).astype(jnp.float32)
     onehot = (idx[:, None] == jnp.arange(k, dtype=idx.dtype)[None, :]).astype(

@@ -4,10 +4,10 @@ The reference scans the scene for emissive geoms and uploads their centers
 as ``dev_lightPositions`` (`src/pathtrace.cu:454-456,491-504`), passes the
 array to the shade kernel (`:340-341`) — and never reads it: direct light
 sampling was planned and abandoned, like stream compaction and material
-sort. This module is the working version of that capability, rebuilt the
-TPU way: area sampling over the emissive analytic primitives as dense
-``[N]``-lane vector math, one batched shadow-ray intersection per bounce,
-no per-light loops.
+sort. This module is the working version of that capability, rebuilt as
+array code: area sampling over the emissive analytic primitives as dense
+``[N]``-lane math, one batched shadow-ray intersection per bounce, no
+per-light loops.
 
 Estimator (enabled with ``RenderConfig(nee=True)``, ``light_only`` mode
 only): at every shading vertex with a diffuse component the contribution
@@ -43,8 +43,10 @@ import dataclasses
 from typing import Callable, Optional
 
 import numpy as np
+import jax
 import jax.numpy as jnp
-from flax import struct
+
+from ..utils import pytree
 
 from ..scene.structs import Scene
 from . import linalg
@@ -54,19 +56,19 @@ _TWO_PI = 6.2831853071795864
 _INV_PI = 0.3183098861837907
 
 
-class LightSampler(struct.PyTreeNode):
+class LightSampler(pytree.PyTreeNode):
     """Stacked emissive-primitive table (L analytic lights).
 
     Built from a *concrete* scene (`make_light_sampler`), closed over by the
-    render step — the handful of rows become jit constants, the TPU analog
-    of the reference's uploaded ``dev_lightPositions`` array."""
+    render step — the handful of rows become jit constants, the analog of
+    the reference's uploaded ``dev_lightPositions`` array."""
 
     kind: jnp.ndarray  # (L,) i32 — 0 cube, 1 sphere
     transform: jnp.ndarray  # (L, 4, 4) f32
     inv_transpose: jnp.ndarray  # (L, 4, 4) f32
     radiance: jnp.ndarray  # (L, 3) f32 — material color × emittance
     geom_index: jnp.ndarray  # (L,) i32
-    num_lights: int = struct.field(pytree_node=False, default=0)
+    num_lights: int = pytree.field(static=True, default=0)
 
     def sample(self, u: jnp.ndarray):
         """Sample one light point per lane. ``u`` is [N, 3] uniforms
@@ -151,8 +153,13 @@ class LightSampler(struct.PyTreeNode):
         ].astype(jnp.int32)
         # invert the normal transform: n_world ∝ A⁻ᵀ·n_obj ⇒ n̂_obj ∝ Aᵀ·n_world
         a = m[:, :3, :3]
+        # HIGHEST: a GPU may run a default-precision einsum as TF32
         n_obj = linalg.normalize(
-            jnp.einsum("nji,nj->ni", a, normal_world), eps=1e-20
+            jnp.einsum(
+                "nji,nj->ni", a, normal_world,
+                precision=jax.lax.Precision.HIGHEST,
+            ),
+            eps=1e-20,
         )
         s = jnp.abs(_det3(a)) * linalg.norm(
             linalg.transform_vector(m_it, n_obj)

@@ -8,9 +8,9 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-# Geometry transforms need full f32: the TPU MXU's default matmul precision
-# is a bfloat16 pass, which is catastrophic for ray-object intersection
-# (bf16 has ~2-3 significant digits — walls vanish, spheres ring).
+# Geometry transforms need full f32: at default precision a GPU may run a
+# matmul/einsum in TF32 (10 mantissa bits, ~3 significant digits), which is
+# catastrophic for ray-object intersection (walls vanish, spheres ring).
 _PRECISION = jax.lax.Precision.HIGHEST
 
 

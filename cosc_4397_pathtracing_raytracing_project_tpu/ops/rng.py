@@ -2,7 +2,7 @@
 
 The reference seeds a per-thread `thrust::default_random_engine` with an
 avalanche hash of ``(iter, pixel, depth)`` (`src/pathtrace.cu:203-207`,
-`src/intersections.h:12-20`). The TPU-native equivalent is JAX's counter-based
+`src/intersections.h:12-20`). The equivalent here is JAX's counter-based
 threefry: one base key per render, folded with the (iteration, depth)
 coordinates, drawing a ``[N, lanes]`` block of uniforms per bounce. Every
 kernel invocation is replayable from ``(seed, iter, depth)`` alone — same
@@ -77,11 +77,10 @@ def hash_bounce_uniforms(
     Drop-in replacement for ``bounce_uniforms`` on reordered wavefronts:
     u[l, i] is a pure function of (key, iteration, depth, pixel_ids[i], l),
     so a sorted wavefront draws exactly the pixel-keyed streams with **no
-    gather** — threefry generation plus a [lanes, n] gather costs ~70 ms per
-    bounce at 2M rays, the hash ~5 ms. The hash is the murmur3-style
-    avalanche used by the Pallas megakernel's interpret-mode PRNG
-    (ops.pallas.megakernel._HashPrng); the reference's analog is its
-    utilhash-seeded thrust engine (`src/pathtrace.cu:203-207`)."""
+    gather** (threefry draws would need a [lanes, n] gather through the
+    permutation). The hash is a murmur3-style avalanche; the reference's
+    analog is its utilhash-seeded thrust engine
+    (`src/pathtrace.cu:203-207`)."""
     seed = _hash_seed(base_key, iteration, depth)
     p = pixel_ids.astype(jnp.uint32)
     return jnp.stack([_hash_u01(seed, p, lane) for lane in range(NUM_LANES)])
@@ -100,6 +99,37 @@ def hash_nee_uniforms(
     return jnp.stack(
         [_hash_u01(seed, p, lane) for lane in range(NUM_LANES, NUM_LANES + 3)],
         axis=-1,
+    )
+
+
+def _hash_lanes(base_key: jax.Array, iteration, depth, pixel_ids, lanes):
+    """``[n, len(lanes)]`` counter-hash uniforms keyed by PIXEL id."""
+    seed = _hash_seed(base_key, iteration, depth)
+    p = pixel_ids.astype(jnp.uint32)
+    return jnp.stack([_hash_u01(seed, p, lane) for lane in lanes], axis=-1)
+
+
+def hash_env_uniforms(
+    base_key: jax.Array, iteration, depth, pixel_ids: jax.Array
+) -> jax.Array:
+    """``[n, 2]`` environment-sampling uniforms keyed by PIXEL id — the
+    pixel-keyed twin of :func:`env_uniforms` (hash lanes NUM_LANES+3 and
+    NUM_LANES+4, disjoint from the bounce and NEE draws)."""
+    return _hash_lanes(
+        base_key, iteration, depth, pixel_ids, (NUM_LANES + 3, NUM_LANES + 4)
+    )
+
+
+def hash_camera_uniforms(
+    base_key: jax.Array, iteration, pixel_ids: jax.Array
+) -> jax.Array:
+    """``[n, 4]`` camera uniforms keyed by PIXEL id: sub-pixel jitter
+    (columns 0-1) and lens disk (columns 2-3) — the pixel-keyed twins of
+    :func:`pixel_jitter` / :func:`lens_uniforms` (hash lanes
+    NUM_LANES+5 … NUM_LANES+8 at depth 0)."""
+    return _hash_lanes(
+        base_key, iteration, 0, pixel_ids,
+        tuple(range(NUM_LANES + 5, NUM_LANES + 9)),
     )
 
 
@@ -134,9 +164,9 @@ def pixel_jitter(base_key: jax.Array, iteration, n: int) -> jax.Array:
 #
 # Per-pixel OWEN-SCRAMBLED Sobol (0,2)-sequences for the estimator's most
 # variance-critical dimensions (sub-pixel AA, lens disk, and the BSDF / NEE
-# draws of the leading `ld_depths` bounces). Design is TPU-shaped: the two
-# Sobol components are pure bit functions of the SCALAR sample index
-# (computable on the scalar unit / hoisted per sample), and the per-pixel /
+# draws of the leading `ld_depths` bounces). The two Sobol components are
+# pure bit functions of the sample index (hoisted per sample when the
+# index is a scalar), and the per-pixel /
 # per-dimension decorrelation is hash-based Owen scrambling (nested uniform
 # scrambling via a Laine-Karras bit permutation — Burley, "Practical
 # Hash-based Owen Scrambling", JCGT 2020): bit-reverse, a 4-round
@@ -213,9 +243,8 @@ _SOBOL_DIR = _sobol_directions()
 def sobol_pair(index) -> tuple:
     """The (0,2)-sequence point for a scalar sample index, as two uint32.
 
-    Pure bit math on the index — traced-scalar friendly (the Pallas
-    megakernel evaluates the same expression on its scalar unit). Component
-    0 is the radical inverse (bit reversal); component 1 XORs direction
+    Pure bit math on the index (a scalar or an array of per-lane indices).
+    Component 0 is the radical inverse (bit reversal); component 1 XORs direction
     numbers for set index bits. Bits ≥ SOBOL_NBITS are ignored (indices wrap
     past 2^21 — far beyond any configured sample count)."""
     n = jnp.asarray(index).astype(jnp.uint32)
@@ -223,7 +252,7 @@ def sobol_pair(index) -> tuple:
     x1 = jnp.uint32(0)
     for k in range(SOBOL_NBITS):
         bit = (n >> jnp.uint32(k)) & jnp.uint32(1)
-        # multiply-by-bit instead of select: lowers on scalar units
+        # multiply-by-bit instead of a select
         x0 = x0 ^ (bit * jnp.uint32(_SOBOL_DIR[0, k]))
         x1 = x1 ^ (bit * jnp.uint32(_SOBOL_DIR[1, k]))
     return x0, x1

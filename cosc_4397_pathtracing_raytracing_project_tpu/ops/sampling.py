@@ -1,7 +1,7 @@
 """BRDF direction sampling (`src/pathtrace.cu:209-248,398-436`), vectorized.
 
 All samplers take pre-drawn uniforms (see ops.rng) so the whole shade stage is
-a pure function of ``(state, uniforms)`` — the TPU-native replacement for the
+a pure function of ``(state, uniforms)`` — the functional replacement for the
 reference's stateful per-thread RNG engines.
 """
 

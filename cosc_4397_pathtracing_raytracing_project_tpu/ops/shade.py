@@ -19,13 +19,15 @@ image-level parity:
 
 The reference loads the material table into CUDA shared memory
 (`pathtrace.cu:343-350`); here the table is gathered per-lane with a one-hot
-contraction, which XLA keeps resident in VMEM — the TPU analog of that cache.
+contraction over the few-row table, which XLA fuses into the shading
+kernel as constants — the analog of that cache.
 """
 
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+
+from ..utils.pytree import PyTreeNode
 
 from ..scene.structs import Materials
 from . import linalg, rng, sampling
@@ -34,7 +36,7 @@ from .intersect import Hit, take_rows
 _ORIGIN_OFFSET = 1e-3  # self-intersection offset (`pathtrace.cu:418,431`)
 
 
-class PathState(struct.PyTreeNode):
+class PathState(PyTreeNode):
     """SoA PathSegment (`sceneStructs.h:67-72`)."""
 
     origin: jnp.ndarray  # (N, 3) f32

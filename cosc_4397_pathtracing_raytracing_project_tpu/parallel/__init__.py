@@ -1,11 +1,10 @@
 from .mesh import PIXEL_AXIS, SAMPLE_AXIS, make_mesh, pixel_sharding, replicated
 from .shard import (
     make_sharded_mesh_step,
-    make_sharded_pallas_step,
     make_sharded_step,
     render_chunk_sharded,
     render_chunk_sharded_mesh,
-    render_chunk_sharded_pallas,
+    render_tiles_sharded,
 )
 
 __all__ = [
@@ -14,10 +13,9 @@ __all__ = [
     "make_mesh",
     "pixel_sharding",
     "replicated",
-    "make_sharded_pallas_step",
     "make_sharded_mesh_step",
     "render_chunk_sharded_mesh",
     "make_sharded_step",
-    "render_chunk_sharded_pallas",
     "render_chunk_sharded",
+    "render_tiles_sharded",
 ]

@@ -1,13 +1,13 @@
 """Device mesh construction for multi-chip rendering.
 
 The reference is strictly single-GPU (`cudaGLSetGLDevice(0)`,
-`src/preview.cpp:112`); scaling here is TPU-native: a 2D
-``Mesh(('sp', 'dp'))`` where
+`src/preview.cpp:112`); scaling here is a 2D ``Mesh(('sp', 'dp'))`` over
+the GPUs of a host, where
 
 - ``dp`` shards the *pixel* dimension (each chip owns a contiguous tile of
   the flat pixel array; the scene/BVH pytrees are tiny and fully replicated),
 - ``sp`` parallelizes *samples* for the same pixels (partial accumulators
-  combined with a ``psum`` over ICI).
+  combined with a ``psum`` — an NCCL all-reduce over NVLink).
 
 No halo exchange is ever needed — paths are independent — so the only
 collective in the hot loop is the sample-parallel ``psum``.

@@ -121,156 +121,19 @@ def render_chunk_sharded(
     return _run_sharded(body, scene, state, mesh, num_samples)
 
 
-def render_chunk_sharded_pallas(
-    scene: Scene,
-    state: RenderState,
-    config: RenderConfig,
-    num_samples: int,
-    mesh: Mesh,
-    interpret: bool = False,
-    geom_kinds=None,
-    scene_static=None,
-    nee_static=None,
-    env_split=None,
-    env_nee=None,
-) -> RenderState:
-    """Multi-chip megakernel step: each dp rank runs the single-dispatch
-    Pallas megakernel (ops.pallas.megakernel) on its contiguous pixel slice;
-    sp ranks split the sample batch and combine with one psum. When the
-    per-rank pixel count is TILE-aligned, the result is bit-identical to the
-    single-device megakernel (tile-base RNG alignment, see render_samples).
-    ENVIRONMENT scenes ride through env_mode='split' — the static sun/SH
-    tables come from the closure (make_sharded_pallas_step) and the exact
-    background composites per pixel slice (pixel_offset-aware)."""
-    from ..ops.pallas import megakernel
-
-    local_pixels, local_samples = _shard_extents(scene, num_samples, mesh)
-    if geom_kinds is None:
-        # inside shard_map the scene is a tracer: derive the static
-        # axis-aligned specialization here (concrete on the direct call path;
-        # make_sharded_pallas_step passes it through its closure)
-        geom_kinds = megakernel._static_geom_kinds(scene)
-    if scene_static is None:
-        # falls back to ((), (), ()) — dynamic SMEM tables — when the scene
-        # is a tracer; make_sharded_pallas_step passes the concrete tables
-        scene_static = megakernel._static_scene_tables(scene)
-    if nee_static is None and getattr(config, "nee", False) and not env_nee:
-        try:
-            nee_static = megakernel._static_light_table(scene)
-        except Exception as e:  # tracer scene: tables must come from outside
-            raise ValueError(
-                "sharded nee needs the concrete light table — call via "
-                "make_sharded_pallas_step (which derives it while the "
-                "scene is concrete)"
-            ) from e
-    if (
-        env_split is None
-        and scene.envmap is not None
-        and getattr(config, "env_mode", "exact") == "split"
-    ):
-        try:
-            env_split = megakernel._static_env_split(scene, config)
-        except Exception as e:  # tracer scene: tables must come from outside
-            raise ValueError(
-                "sharded env_mode='split' needs the concrete sun/SH tables "
-                "— call via make_sharded_pallas_step"
-            ) from e
-    # env_mode='exact' needs nothing here: render_samples derives the
-    # in-kernel gather dims from shapes alone (tracer-safe) and the planes
-    # ride the sharded scene's replicated EnvMap leaves
-
-    # Each shard's kernel tiles seed RNG as (global tile_base + local tile).
-    # tile_base must be unique per shard: offset // TILE collides when the
-    # per-shard slice is smaller than one TILE (two shards would then draw
-    # identical uniforms for different pixel regions — spatially correlated
-    # noise that never averages out). dp · ceil(local/TILE) is unique for
-    # any alignment and equals offset // TILE exactly when the slice is
-    # TILE-aligned, preserving bit-identity with the single-device render.
-    tiles_per_shard = (local_pixels + megakernel.TILE - 1) // megakernel.TILE
-
-    def body(scene, accum_local, iteration, key):
-        dp = jax.lax.axis_index(PIXEL_AXIS)
-        sp = jax.lax.axis_index(SAMPLE_AXIS)
-        offset = dp * jnp.int32(local_pixels)
-        # same seed derivation as engine.make_pallas_step — per-tile streams
-        # already decorrelate via the global tile id
-        seed = (key.reshape(-1)[-1].astype(jnp.uint32)).astype(jnp.int32)
-        iter_base = iteration + 1 + sp * jnp.int32(local_samples)
-        rad = megakernel.render_samples(
-            scene,
-            config,
-            seed,
-            iter_base,
-            local_samples,
-            interpret=interpret,
-            pixel_offset=offset,
-            num_pixels=local_pixels,
-            geom_kinds=geom_kinds,
-            scene_static=scene_static,
-            nee_static=nee_static,
-            env_split=env_split,
-            env_nee=env_nee,
-            tile_base=dp * jnp.int32(tiles_per_shard),
-        )
-        rad = jax.lax.psum(rad, SAMPLE_AXIS)
-        return accum_local + rad
-
-    return _run_sharded(body, scene, state, mesh, num_samples)
-
-
-def make_sharded_pallas_step(
-    scene: Scene,
-    config: RenderConfig,
-    num_samples: int,
-    mesh: Mesh,
-    interpret: bool = False,
-):
-    """jit-compiled closure over the static pieces (megakernel pipeline)."""
-    config = _resolve_dof(scene, config)
-    from ..ops.pallas import megakernel
-
-    fn = partial(
-        render_chunk_sharded_pallas,
-        config=config,
-        num_samples=num_samples,
-        mesh=mesh,
-        interpret=interpret,
-        # derived here while the scene is concrete — inside the jit trace
-        # below the scene arrays are tracers
-        geom_kinds=megakernel._static_geom_kinds(scene),
-        scene_static=megakernel._static_scene_tables(scene),
-        nee_static=(
-            megakernel._static_light_table(scene)
-            if getattr(config, "nee", False)
-            and not megakernel._wants_env_nee(scene, config)
-            else None
-        ),
-        env_split=(
-            megakernel._static_env_split(scene, config)
-            if scene.envmap is not None and config.env_mode == "split"
-            else None
-        ),
-        # env NEE needs concrete emittance values to derive; precompute the
-        # flag here so the traced render_samples call never probes the
-        # (tracer) scene
-        env_nee=megakernel._wants_env_nee(scene, config),
-    )
-    return jax.jit(lambda scene, state: fn(scene, state))
-
-
 def render_chunk_sharded_mesh(
     scene: Scene,
     state: RenderState,
     config: RenderConfig,
     num_samples: int,
     mesh: Mesh,
-    cluster_isect,
+    tri_isect,
     light_sampler=None,
 ) -> RenderState:
-    """Multi-chip triangle-mesh step: each dp rank runs the sorted-wavefront
-    mesh pipeline (ops.fast.trace_sample_mesh + the cluster-culled Pallas
-    kernel) on its contiguous pixel slice; sp ranks split samples and
-    combine with one psum. The cluster tables are replicated (a few MB).
+    """Multi-device triangle-mesh step: each dp rank runs the sorted-
+    wavefront mesh pipeline (ops.fast.trace_sample_mesh + the BVH triangle
+    intersector) on its contiguous pixel slice; sp ranks split samples and
+    combine with one psum. The BVH tables are replicated (a few MB).
     RNG (bounce uniforms AND antialias jitter) keys on the *global* pixel
     id, so every shard traces exactly the paths the single-device render
     would; per-pixel results match to float reassociation (1-2 ulp — XLA
@@ -287,7 +150,7 @@ def render_chunk_sharded_mesh(
         def one(acc, i):
             it = iteration + 1 + sp * jnp.int32(local_samples) + i
             color = fast.trace_sample_mesh(
-                scene, config, key, it, cluster_isect,
+                scene, config, key, it, tri_isect,
                 pixel_offset=offset, num_pixels=local_pixels,
                 light_sampler=light_sampler,
             )
@@ -309,16 +172,15 @@ def make_sharded_mesh_step(
     config: RenderConfig,
     num_samples: int,
     mesh: Mesh,
-    interpret: bool = False,
 ):
     """jit-compiled closure over the static pieces (mesh pipeline). The
-    cluster intersector (triangle tables + visit order) is built once here
-    from the concrete scene and closed over — inside the trace the scene
-    arrays are tracers."""
+    triangle intersector (BVH + leaf-ordered triangle tables) is built once
+    here from the concrete scene and closed over — inside the trace the
+    scene arrays are tracers."""
     config = _resolve_dof(scene, config)
     from ..render.engine import make_mesh_intersector
 
-    cluster = make_mesh_intersector(scene, interpret=interpret)
+    tri_isect = make_mesh_intersector(scene, config.bvh_leaf_size)
     light_sampler = None
     if getattr(config, "nee", False):
         from ..ops.lights import make_light_sampler
@@ -334,79 +196,65 @@ def make_sharded_mesh_step(
         config=config,
         num_samples=num_samples,
         mesh=mesh,
-        cluster_isect=cluster,
+        tri_isect=tri_isect,
         light_sampler=light_sampler,
     )
-    from ..ops.pallas.mesh_kernel import JIT_COMPILER_OPTIONS
-
-    return jax.jit(
-        lambda scene, state: fn(scene, state),
-        compiler_options=None if interpret else JIT_COMPILER_OPTIONS,
-    )
+    return jax.jit(lambda scene, state: fn(scene, state))
 
 
 def render_tiles_sharded(
     scene: Scene,
     config: RenderConfig,
-    seed,
-    tile_ids,
-    iter_bases,
-    px,
-    py,
+    key,
+    pix,
+    bases,
     num_samples: int,
     mesh: Mesh,
-    interpret: bool = False,
-    geom_kinds=None,
-    scene_static=None,
-    nee_static=None,
+    light_sampler=None,
 ):
-    """Multi-chip tile-selected megakernel dispatch (the adaptive-sampling
-    kernel entry, ops.pallas.megakernel.render_tiles) sharded over the
-    selected-tile axis.
+    """Multi-device tile-selected dispatch (the adaptive sampler's
+    render.adaptive.render_tiles) sharded over the selected-tile axis.
 
-    Tiles are fully independent work items whose identity is *data* (per-
-    tile RNG key + iteration base ride in SMEM), so the K-tile dispatch
-    shards over ALL mesh devices at once — the leading axis splits over the
-    flattened ('sp','dp') axes, each rank running a K/n_devices-step grid on
-    its contiguous slice. No collective at all: the output radiance comes
-    back sharded over the same axis and the caller's scatter-add consumes
-    it. Bit-identical to the single-device dispatch by construction — each
-    tile's kernel sees exactly the same (seed, tile id, iter base, px, py).
+    Tiles are fully independent work items whose identity is *data* (pixel
+    ids + iteration base per row), so the M-row dispatch shards over ALL
+    mesh devices at once — the leading axis splits over the flattened
+    ('sp','dp') axes, each rank tracing its contiguous M/n_devices rows.
+    No collective at all: the radiance comes back sharded over the same
+    axis and the caller's scatter-add consumes it. Every draw is keyed by
+    (pixel, iteration), so each row's result does not depend on which
+    rank traces it.
 
-    K must divide by the mesh's device count (the adaptive driver rounds
+    M must divide by the mesh's device count (the adaptive driver rounds
     its selection size up to guarantee this)."""
-    from ..ops.pallas import megakernel
+    from ..render.adaptive import render_tiles
 
     n_dev = mesh.devices.size
-    k = tile_ids.shape[0]
-    if k % n_dev != 0:
+    m = pix.shape[0]
+    if m % n_dev != 0:
         raise ValueError(
-            f"selected tile count {k} not divisible by {n_dev} devices"
+            f"selected tile count {m} not divisible by {n_dev} devices"
         )
-    if geom_kinds is None:
-        geom_kinds = megakernel._static_geom_kinds(scene)
-    if scene_static is None:
-        scene_static = megakernel._static_scene_tables(scene)
-
     tile_axes = (SAMPLE_AXIS, PIXEL_AXIS)
+    # the light sampler rides as an explicit replicated operand (absent
+    # entirely without nee: an empty pytree has no spec to match)
+    extra = () if light_sampler is None else (light_sampler,)
 
-    def body(scene, seed, ids, bases, px, py):
-        return megakernel.render_tiles(
-            scene, config, seed, ids, bases, px, py, num_samples,
-            interpret=interpret, geom_kinds=geom_kinds,
-            scene_static=scene_static, nee_static=nee_static,
+    def body(scene, key, pix, bases, *extra):
+        sampler = extra[0] if extra else None
+        return render_tiles(
+            scene, config, key, pix, bases, num_samples, sampler
         )
 
     sharded = jax.shard_map(
         body,
         mesh=mesh,
-        in_specs=(P(), P(), P(tile_axes), P(tile_axes),
-                  P(tile_axes, None), P(tile_axes, None)),
-        out_specs=P(tile_axes, None),
+        in_specs=(P(), P(), P(tile_axes, None), P(tile_axes))
+        + (P(),) * len(extra),
+        out_specs=P(tile_axes, None, None),
         check_vma=False,
     )
     scene = jax.device_put(scene, NamedSharding(mesh, P()))
-    return sharded(scene, seed, tile_ids, iter_bases, px, py)
+    return sharded(scene, key, pix, bases, *extra)
 
 
 def make_sharded_step(

@@ -61,7 +61,7 @@ def load_checkpoint(path: str):
 # ── adaptive-sampler state (render.adaptive) ──
 #
 # The adaptive renderer's complete state is the two half-buffer
-# accumulators + per-tile sample counts + seed + the lane-budget odometer:
+# accumulators + per-tile sample counts + RNG key + the lane-budget odometer:
 # per-tile iteration counters fully key every RNG/LD stream, so a resumed
 # adaptive render continues each tile's sample sequence exactly where it
 # stopped — save/resume is bit-identical, same contract as the uniform
@@ -77,7 +77,7 @@ def save_adaptive_checkpoint(path: str, r, meta: Optional[dict] = None) -> str:
         acc_a=np.asarray(r._acc_a),
         acc_b=np.asarray(r._acc_b),
         counts=np.asarray(r._counts),
-        seed=np.asarray(r._seed),
+        key=np.asarray(r._key),
         budget_spent=np.int64(r._lane_budget_spent),
         meta=json.dumps(meta or {}),
     )
@@ -100,7 +100,7 @@ def load_adaptive_checkpoint(path: str):
             "acc_a": jnp.asarray(data["acc_a"]),
             "acc_b": jnp.asarray(data["acc_b"]),
             "counts": jnp.asarray(data["counts"]),
-            "seed": jnp.asarray(data["seed"]),
+            "key": jnp.asarray(data["key"]),
             "budget_spent": int(data["budget_spent"]),
         }
         meta = json.loads(str(data["meta"]))

@@ -6,7 +6,7 @@ standard companion subsystem of a production path tracer, built the XLA
 way: the filter is ~125 statically-unrolled shifted multiply-adds over the
 whole [H, W] image (5 levels × 5×5 taps), which XLA fuses into a handful of
 elementwise kernels — no gathers, no data-dependent control flow, runs on
-anything (TPU/CPU) and under jit/shard_map unchanged.
+any backend (GPU/CPU) and under jit/shard_map unchanged.
 
 Design (Dammertz et al., "Edge-Avoiding À-Trous Wavelet Transform for Fast
 Global Illumination Filtering", HPG 2010, plus the albedo demodulation step
@@ -30,8 +30,7 @@ popularized by SVGF/OIDN):
 
 The filter preserves constants exactly (weights are normalized, the center
 tap weight is 1), so a converged render passes through nearly unchanged
-while low-spp renders gain several dB (measured: tests/test_denoise.py and
-the TPU datum in docs/ROADMAP.md).
+while low-spp renders gain several dB (measured: tests/test_denoise.py).
 """
 
 from __future__ import annotations

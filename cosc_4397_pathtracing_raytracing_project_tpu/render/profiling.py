@@ -1,8 +1,8 @@
 """Profiling & tracing utilities.
 
 The reference brackets each of its four kernels with CUDA events and prints
-per-stage milliseconds every iteration (`pathtrace.cu:539-547,632-646`). The
-TPU build fuses the whole sample into one computation, so per-stage numbers
+per-stage milliseconds every iteration (`pathtrace.cu:539-547,632-646`). This
+build fuses the whole sample into one computation, so per-stage numbers
 come from running the stages as separately-jitted functions on demand
 (`profile_stages`), and whole-program analysis uses the XLA profiler
 (`trace`, viewable in TensorBoard / xprof)."""
@@ -24,12 +24,8 @@ from ..scene.structs import Scene
 
 
 def _sync(x) -> None:
-    """Reliable device sync (see Renderer.sync)."""
-    jax.tree.leaves(x)[0].block_until_ready()
-    import numpy as np
-
-    leaf = jax.tree.leaves(x)[0]
-    np.asarray(leaf.reshape(-1)[0])
+    """Block until every array in `x` is computed."""
+    jax.block_until_ready(x)
 
 
 def _time(fn, *args, reps: int = 10) -> float:
@@ -77,8 +73,8 @@ def profile_pipeline(scene: Scene, config, seed: int = 0, reps: int = 3) -> Dict
     """Bounce-granularity timing for the *production* pipelines.
 
     `profile_stages` breaks down the readable pipeline; this times whatever
-    pipeline `config` resolves to (fast SoA, Pallas megakernel, cluster-mesh)
-    by rendering one sample at increasing trace depths. Since every bounce is
+    pipeline `config` resolves to (fast SoA, mesh, reference) by rendering
+    one sample at increasing trace depths. Since every bounce is
     identical work, the depth-slope isolates the per-bounce cost from the
     fixed cost (raygen, dispatch, final gather):
 
@@ -98,22 +94,13 @@ def profile_pipeline(scene: Scene, config, seed: int = 0, reps: int = 3) -> Dict
     if pipeline == "fast_mesh":
         from .engine import make_mesh_intersector
 
-        mesh_isect = make_mesh_intersector(scene)
+        mesh_isect = make_mesh_intersector(scene, config.bvh_leaf_size)
 
     def runner(d: int):
         # jit the whole sample (iteration stays a traced arg so nothing
-        # constant-folds); eager per-op dispatch on a remote TPU is useless
-        # for timing
+        # constant-folds); eager per-op dispatch would time the dispatcher
         cfg = dataclasses.replace(config, trace_depth=d)
-        if pipeline == "pallas":
-            from ..ops.pallas import megakernel
-
-            fn = jax.jit(
-                lambda it: megakernel.render_samples(
-                    scene, cfg, jnp.int32(seed), it, 1
-                )
-            )
-        elif pipeline == "fast_mesh":
+        if pipeline == "fast_mesh":
             from ..ops import fast
 
             fn = jax.jit(

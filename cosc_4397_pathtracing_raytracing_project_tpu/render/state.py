@@ -10,10 +10,11 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from ..utils.pytree import PyTreeNode
 
 
-class RenderState(struct.PyTreeNode):
+class RenderState(PyTreeNode):
     accum: jnp.ndarray  # (N, 3) f32 linear radiance sums
     iteration: jnp.ndarray  # () i32 — samples accumulated so far
     key: jnp.ndarray  # threefry base key for this render

@@ -9,7 +9,7 @@ Grammar (line-oriented, whitespace-tokenized, CRLF-safe):
 - ``OBJECT <id>`` then a type line (``cube``|``sphere``|``mesh``), a
   ``material <id>`` line, and ``TRANS/ROTAT/SCALE`` lines until a blank line
   (`scene.cpp:35-90`). ``mesh`` additionally takes a ``FILE <path.obj>`` line
-  (a TPU-build extension; the reference declares triangle storage in
+  (an extension; the reference declares triangle storage in
   `sceneStructs.h:30-35` but never loads meshes).
 
 IDs must be sequential from 0, matching the reference's check

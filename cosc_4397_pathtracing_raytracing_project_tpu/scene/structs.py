@@ -1,8 +1,8 @@
 """Scene data model.
 
 Host side: plain-dataclass ``SceneDesc`` built by the parser (NumPy arrays).
-Device side: ``flax.struct`` pytrees in structure-of-arrays layout — the
-TPU-native redesign of the reference's array-of-structs PODs
+Device side: frozen dataclass pytrees (``utils.pytree``) in structure-of-
+arrays layout — a vector-friendly redesign of the reference's array-of-structs PODs
 (`src/sceneStructs.h:10-83`). Geometry is *partitioned by primitive type*
 (cubes / spheres / triangles) at build time so the intersectors run as dense
 vectorized batches with no per-lane type dispatch, unlike the reference's
@@ -16,7 +16,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
+from ..utils import pytree
 
 from . import transforms
 
@@ -100,7 +100,7 @@ class SceneDesc:
 # ─────────────────────────── device-side pytrees ───────────────────────────
 
 
-class Materials(struct.PyTreeNode):
+class Materials(pytree.PyTreeNode):
     """SoA material table, one row per material (`src/sceneStructs.h:38-49`)."""
 
     color: jnp.ndarray  # (M, 3) f32
@@ -112,7 +112,7 @@ class Materials(struct.PyTreeNode):
     emittance: jnp.ndarray  # (M,) f32
 
 
-class GeomBatch(struct.PyTreeNode):
+class GeomBatch(pytree.PyTreeNode):
     """A dense batch of same-type primitives (all cubes or all spheres)."""
 
     material_id: jnp.ndarray  # (K,) i32
@@ -126,7 +126,7 @@ class GeomBatch(struct.PyTreeNode):
         return self.material_id.shape[0]
 
 
-class TriangleBatch(struct.PyTreeNode):
+class TriangleBatch(pytree.PyTreeNode):
     """World-space triangle soup (extension beyond the reference's analytic
     primitives; the reference declares triangle fields in `sceneStructs.h:30-35`
     but never fills them)."""
@@ -143,7 +143,7 @@ class TriangleBatch(struct.PyTreeNode):
         return self.material_id.shape[0]
 
 
-class Camera(struct.PyTreeNode):
+class Camera(pytree.PyTreeNode):
     """Derived render camera. Dynamic fields are device arrays so camera moves
     don't retrigger compilation; resolution is static (shapes depend on it)."""
 
@@ -152,13 +152,13 @@ class Camera(struct.PyTreeNode):
     up: jnp.ndarray  # (3,)
     right: jnp.ndarray  # (3,)
     pixel_length: jnp.ndarray  # (2,)
-    resolution: Tuple[int, int] = struct.field(pytree_node=False, default=(0, 0))
+    resolution: Tuple[int, int] = pytree.field(static=True, default=(0, 0))
     # thin-lens extension (dynamic scalars so refocusing never recompiles);
     # aperture 0 = pinhole, focal = focal-plane distance along `view`
-    aperture: jnp.ndarray = struct.field(
+    aperture: jnp.ndarray = pytree.field(
         default_factory=lambda: jnp.zeros((), jnp.float32)
     )
-    focal: jnp.ndarray = struct.field(
+    focal: jnp.ndarray = pytree.field(
         default_factory=lambda: jnp.ones((), jnp.float32)
     )
 
@@ -175,7 +175,7 @@ class Camera(struct.PyTreeNode):
         return self.resolution[0] * self.resolution[1]
 
 
-class Scene(struct.PyTreeNode):
+class Scene(pytree.PyTreeNode):
     """Full device scene: partitioned geometry + materials + camera."""
 
     cubes: GeomBatch

@@ -18,13 +18,13 @@ import sys
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="cosc_4397_pathtracing_raytracing_project_tpu",
-        description="TPU-native Monte Carlo path tracer",
+        description="Monte Carlo path tracer (JAX)",
     )
     p.add_argument("scene", help="scene file (scenes/*.txt format)")
     p.add_argument("--iterations", type=int, default=None,
                    help="override the scene's ITERATIONS")
     p.add_argument("--model", default="auto",
-                   help="renderer model: auto|naive|shared|bvh|megakernel|wavefront")
+                   help="renderer model: auto|naive|shared|bvh|wavefront")
     p.add_argument("--estimator", default="light_only",
                    choices=["light_only", "throughput"],
                    help="light_only = physically correct; throughput = "
@@ -41,8 +41,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--nee", action="store_true",
                    help="direct light sampling + MIS (extension; the working "
                         "version of the reference's dead dev_lightPositions). "
-                        "light_only estimator; in-kernel on the megakernel, "
-                        "SoA fast path or wavefront elsewhere")
+                        "light_only estimator; every pipeline except "
+                        "--model wavefront")
     p.add_argument("--envmap", default=None,
                    help="HDR environment map path (extension; equivalent to "
                         "an ENVIRONMENT block in the scene file — replaces "
@@ -52,13 +52,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--env-strength", type=float, default=None,
                    help="environment radiance multiplier (default 1, or the "
                         "scene's STRENGTH line)")
-    p.add_argument("--env-mode", default="exact",
-                   choices=["exact", "split"],
-                   help="environment evaluation: exact = unbiased HDR "
-                        "lookups + importance sampling (XLA fast pipeline); "
-                        "split = megakernel sun/sky decomposition (delta "
-                        "suns + SH-9 residual + exact composited "
-                        "background) — approximate but megakernel-fast")
     p.add_argument("--sampler", default="independent",
                    choices=["independent", "sobol"],
                    help="sample generator (extension; the reference only "
@@ -81,7 +74,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="variance-guided adaptive sampling (extension; see "
                         "render/adaptive.py): uniform warmup, then "
                         "refinement rounds that spend the remaining sample "
-                        "budget on the noisiest image tiles. Megakernel "
+                        "budget on the noisiest image tiles. Fast "
                         "pipeline (analytic scenes); ITERATIONS becomes the "
                         "average spp budget")
     p.add_argument("--adaptive-frac", type=float, default=0.25,
@@ -90,10 +83,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--adaptive-round", type=int, default=32,
                    help="with --adaptive: samples per refined tile per "
                         "round (default 32)")
-    p.add_argument("--early-exit", action="store_true",
-                   help="megakernel: skip bounces once a whole tile's lanes "
-                        "terminate. Wins big on OPEN scenes (rays escape: "
-                        "+69%% measured), costs ~11%% on closed boxes")
     p.add_argument("--aperture", type=float, default=None,
                    help="thin-lens depth of field: lens radius in world "
                         "units (extension; overrides the scene's APERTURE "
@@ -165,24 +154,21 @@ def main(argv=None) -> int:
         samples_per_launch=args.chunk,
         enable_refraction=refraction,
         nee=args.nee,
-        early_exit=args.early_exit,
         sampler=args.sampler,
         ld_depths=max(1, args.ld_depths),
-        env_mode=args.env_mode,
     )
     if args.nee and args.estimator == "throughput":
         print("error: --nee needs the light_only estimator", file=sys.stderr)
         return 2
-    # nee runs on the reference wavefront, the SoA fast path ('shared'/
-    # 'naive'/'bvh'), and in-kernel on the megakernel; the custom
-    # wavefront-compaction step doesn't carry it
+    # nee runs on the reference wavefront and the SoA fast paths; the
+    # custom wavefront-compaction step doesn't carry it
     if args.nee and args.model == "wavefront":
         print("error: --nee is not supported with --model wavefront",
               file=sys.stderr)
         return 2
     if args.adaptive:
         if args.model != "auto":
-            print("error: --adaptive runs its own (megakernel) pipeline; "
+            print("error: --adaptive runs its own (fast) pipeline; "
                   "drop --model", file=sys.stderr)
             return 2
         if args.serve:

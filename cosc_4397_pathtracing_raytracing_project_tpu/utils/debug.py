@@ -1,4 +1,4 @@
-"""Debugging aids — the TPU-side analog of the reference's ERRORCHECK
+"""Debugging aids — the JAX-side analog of the reference's ERRORCHECK
 (`pathtrace.cu:137-150`, a device sync + error check after every kernel).
 
 JAX's functional model removes the data-race and async-error classes the

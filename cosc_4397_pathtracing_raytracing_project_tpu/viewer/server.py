@@ -1,6 +1,6 @@
 """Interactive preview: a zero-dependency web viewer.
 
-There is no CUDA↔GL PBO interop on a TPU (`src/preview.cpp:118-134` has no
+There is no CUDA↔GL PBO interop from JAX (`src/preview.cpp:118-134` has no
 analog), so the display path is host-side: the renderer accumulates on
 device continuously in a background thread and frames push to the browser
 (the `sendImageToPBO` gamma path, `pathtrace.cu:250-268`) entirely off the
@@ -37,7 +37,7 @@ from ..render.engine import Renderer
 from .controls import OrbitCameraController
 
 _PAGE = """<!doctype html>
-<html><head><title>TPU Path Tracer</title><style>
+<html><head><title>JAX Path Tracer</title><style>
 body { background:#111; color:#ddd; font-family:monospace; margin:0 }
 #wrap { display:flex } #view { cursor:grab }
 #hud { padding:12px; white-space:pre; font-size:12px }
@@ -238,7 +238,8 @@ class PreviewServer:
     def _denoised_display(self, camera_gen: int):
         """uint8 gamma view of the denoised accumulator mean. AOVs rebuild
         only when the camera moved (they are pose-only); the filter itself
-        is ~40 ms on TPU at 800×800, fine at display cadence."""
+        is a handful of fused elementwise kernels per frame (its time on
+        the GPU: not measured)."""
         import numpy as np
 
         from ..render.denoise import atrous_denoise, render_aovs

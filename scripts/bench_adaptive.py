@@ -1,10 +1,9 @@
-"""Adaptive-sampling quality A/B on the real TPU.
+"""Adaptive-sampling quality A/B on the GPU.
 
-Equal-budget comparison on the golden Cornell configuration: uniform
-megakernel render vs render.adaptive's variance-guided allocation, PSNR vs
-the converged 5000-sample reference at each budget. Run each arm in a FRESH
-process (CLAUDE.md: the pallas executable cache survives in-process config
-mutation; and the pooled chip drifts — alternate arms):
+Equal-budget comparison on the golden Cornell configuration: uniform fast
+render vs render.adaptive's variance-guided allocation, PSNR vs the
+converged 5000-sample reference at each budget, with wall time and rate
+(run the arms alternately to see the spread):
 
     python scripts/bench_adaptive.py --spp 128
     python scripts/bench_adaptive.py --spp 128 --arm uniform
@@ -40,14 +39,14 @@ def main():
     ap.add_argument("--chunk", type=int, default=40)
     args = ap.parse_args()
 
-    import jax
-
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.environ.get("PT_COMPILE_CACHE",
-                       os.path.expanduser("~/.cache/jax_pt")),
+    from cosc_4397_pathtracing_raytracing_project_tpu.utils import device
+    from cosc_4397_pathtracing_raytracing_project_tpu.utils.cache import (
+        enable_compile_cache,
     )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+
+    device.require_gpu()
+    enable_compile_cache()
+    print(f"card: {' | '.join(device.card_lines())}")
 
     import numpy as np
 

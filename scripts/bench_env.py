@@ -1,13 +1,11 @@
-"""Environment-lighting benchmark: exact vs split, throughput + quality.
+"""Environment-lighting benchmark: throughput + quality on the GPU.
 
-Renders `scenes/env_spheres.txt` (800×800, HDR meadow map) three ways on
-the current backend and reports steady-state throughput plus PSNR against
-a high-spp unbiased reference render:
+Renders `scenes/env_spheres.txt` (800×800, HDR meadow map) two ways and
+reports steady-state throughput plus PSNR against a high-spp unbiased
+reference render:
 
   exact        — bilinear HDR lookups, BRDF sampling only (fast pipeline)
   exact+nee    — + alias-table importance sampling + MIS  (fast pipeline)
-  split        — megakernel sun/sky decomposition (delta suns + SH-9 sky
-                 + exact composited background)
 
 Run from the repo root:  python scripts/bench_env.py [--spp 64] [--ref-spp 512]
 """
@@ -57,6 +55,14 @@ def main() -> int:
     ap.add_argument("--ref-spp", type=int, default=512)
     ap.add_argument("--chunk", type=int, default=16)
     args = ap.parse_args()
+    from cosc_4397_pathtracing_raytracing_project_tpu.utils import device
+    from cosc_4397_pathtracing_raytracing_project_tpu.utils.cache import (
+        enable_compile_cache,
+    )
+
+    device.require_gpu()
+    enable_compile_cache()
+    print(f"card: {' | '.join(device.card_lines())}")
 
     desc = load_scene_desc(args.scene)
     common = dict(samples_per_launch=args.chunk, enable_refraction=True)
@@ -65,19 +71,11 @@ def main() -> int:
     ref, _ = _run(desc, RenderConfig(nee=True, **common), args.ref_spp,
                   args.chunk, seed=99)
 
+    # chunk must divide spp: a trailing odd-size launch is a fresh
+    # computation shape whose compile would land inside the timed region
     configs = [
-        # auto-routed rows run IN-KERNEL on TPU (megakernel exact env /
-        # env NEE); the pipeline='fast' rows pin the XLA path they replace
         ("exact", RenderConfig(**common)),
         ("exact+nee", RenderConfig(nee=True, **common)),
-        ("exact(fast)", RenderConfig(pipeline="fast", **common)),
-        ("exact+nee(fast)", RenderConfig(nee=True, pipeline="fast",
-                                         **common)),
-        # chunk must divide spp: a trailing odd-size launch is a fresh
-        # computation shape whose ~40 s remote compile lands inside the
-        # timed region (observed as a bogus 0.8 M rays/s split row)
-        ("split", RenderConfig(env_mode="split", samples_per_launch=32,
-                               enable_refraction=True)),
     ]
     for name, cfg in configs:
         img, rays = _run(desc, cfg, args.spp, cfg.samples_per_launch)

@@ -1,9 +1,9 @@
-"""A/B the padded-Sobol depth extension (RenderConfig.ld_depths) on TPU.
+"""A/B the padded-Sobol depth extension (RenderConfig.ld_depths) on the GPU.
 
 For each arm (ld_depths value): golden-image PSNR at 200 and 1000 spp on the
 upstream golden Cornell (the quality axis), and a best-of-3 rays/s lap on the
 headline bench configuration (the cost axis). Arms alternate their timing
-laps to cancel pooled-chip tenant drift (CLAUDE.md: take best-of-N).
+laps so drift in the card's clocks hits every arm alike.
 
 Usage: python scripts/bench_ld.py [--depths 1 2 3] [--iters 300] [--chunk 200]
 """
@@ -19,16 +19,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 
-def _setup_cache():
-    import jax
-
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.environ.get(
-            "PT_COMPILE_CACHE", os.path.expanduser("~/.cache/jax_pt")
-        ),
+def _setup():
+    from cosc_4397_pathtracing_raytracing_project_tpu.utils import device
+    from cosc_4397_pathtracing_raytracing_project_tpu.utils.cache import (
+        enable_compile_cache,
     )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+
+    device.require_gpu()
+    enable_compile_cache()
+    print(f"card: {' | '.join(device.card_lines())}")
 
 
 def main():
@@ -39,7 +38,7 @@ def main():
     ap.add_argument("--skip-quality", action="store_true")
     ap.add_argument("--skip-speed", action="store_true")
     args = ap.parse_args()
-    _setup_cache()
+    _setup()
 
     import numpy as np
 

@@ -1,14 +1,19 @@
-"""Mesh-pipeline microbenchmark on the real TPU (BASELINE config 5 scene).
+"""Mesh-pipeline microbenchmark (BASELINE config 5 scene) on the GPU.
 
-Times one warm sample of trace_sample_mesh at 1080p over the 38.5k-triangle
-scene, with a breakdown of the per-bounce pieces (sort vs cluster kernel),
-and sweeps tuning knobs when asked.
+Times warm samples of trace_sample_mesh at 1080p over the 38.5k-triangle
+scene through the XLA BVH intersector (render.engine.make_mesh_intersector),
+and sweeps the wavefront-sort knobs when asked.
 
     python scripts/bench_mesh.py [--samples 3] [--depth 8] [--res 1920x1080]
-                                 [--cluster 64] [--no-sort]
+                                 [--no-sort] [--nee] [--leaf N]
 
-All timings use a data-dependent fetch (float(sum(x[:2]))) — on this backend
-block_until_ready can return before queued kernels finish (see CLAUDE.md).
+With --compare it instead renders the scene through Renderer with each
+pipeline ('fast_mesh', 'reference') at each BVH leaf size, every
+configuration compiled first and then timed in interleaved rounds, and
+prints the rays/s of every run and their median per configuration:
+
+    python scripts/bench_mesh.py --compare [--leaves 1,2,4] [--repeats 3]
+                                           [--spp 2]
 """
 
 from __future__ import annotations
@@ -22,19 +27,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
-# persistent compile cache, same path as bench.py / tpu_experiments.py:
-# sweep reruns skip the 25-90s remote compile for already-seen shapes
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.environ.get("PT_COMPILE_CACHE", os.path.expanduser("~/.cache/jax_pt")),
+from cosc_4397_pathtracing_raytracing_project_tpu.utils import device
+from cosc_4397_pathtracing_raytracing_project_tpu.utils.cache import (
+    enable_compile_cache,
 )
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-
-
-def sync(x):
-    return float(jnp.sum(jnp.ravel(x)[:2]))
 
 
 def main():
@@ -42,7 +39,6 @@ def main():
     ap.add_argument("--samples", type=int, default=3)
     ap.add_argument("--depth", type=int, default=8)
     ap.add_argument("--res", default="1920x1080")
-    ap.add_argument("--cluster", type=int, default=None)
     ap.add_argument("--no-sort", action="store_true")
     ap.add_argument("--batch", type=int, default=1,
                     help="samples per jitted dispatch")
@@ -51,43 +47,25 @@ def main():
     ap.add_argument("--fused-sort", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="fused lax.sort with payloads instead of argsort+"
-                         "gather (default on: 4.78 vs 2.64 M rays/s)")
+                         "gather (default on)")
     ap.add_argument("--sort-cells", type=int, default=2,
                     help="origin-grid resolution of the sort key "
-                         "(default 2: 4.90 vs 4.78 M rays/s at cells=4)")
-    ap.add_argument("--tile-rows", type=int, default=None,
-                    help="override mesh_kernel.TILE_ROWS (fresh process only)")
-    ap.add_argument("--super", type=int, default=None, dest="super_",
-                    help="override mesh_kernel.SUPER — clusters per "
-                         "supercluster (fresh process only)")
-    ap.add_argument("--box-batch", type=int, default=None,
-                    help="override mesh_kernel.BATCH — boxes slab-tested "
-                         "per scalar branch (fresh process only)")
+                         "(default 2)")
     ap.add_argument("--nee", action="store_true",
-                    help="direct light sampling + MIS (cluster-kernel "
-                         "shadow rays; needs an analytic emitter)")
-    ap.add_argument("--ablation", default=None,
-                    choices=["notri", "noload"],
-                    help="timing probe (image is WRONG): 'notri' keeps row "
-                         "loads, drops the MT math; 'noload' keeps the "
-                         "math, drops the loads")
+                    help="direct light sampling + MIS (BVH shadow rays; "
+                         "needs an analytic emitter)")
+    ap.add_argument("--leaf", type=int, default=None,
+                    help="BVH leaf size (default ops.bvh.LEAF_SIZE)")
+    ap.add_argument("--compare", action="store_true",
+                    help="time both mesh pipelines at each of --leaves")
+    ap.add_argument("--leaves", default="1,2,4")
+    ap.add_argument("--repeats", type=int, default=3)
+    ap.add_argument("--spp", type=int, default=2,
+                    help="samples per timed --compare render")
     args = ap.parse_args()
-
-    if (args.tile_rows is not None or args.super_ is not None
-            or args.box_batch is not None or args.ablation is not None):
-        from cosc_4397_pathtracing_raytracing_project_tpu.ops.pallas import (
-            mesh_kernel,
-        )
-
-        if args.tile_rows is not None:
-            mesh_kernel.TILE_ROWS = args.tile_rows
-            mesh_kernel.TILE = args.tile_rows * mesh_kernel.LANES
-        if args.super_ is not None:
-            mesh_kernel.SUPER = args.super_
-        if args.box_batch is not None:
-            mesh_kernel.BATCH = args.box_batch
-        if args.ablation is not None:
-            mesh_kernel.ABLATION = args.ablation
+    device.require_gpu()
+    enable_compile_cache()
+    print(f"card: {' | '.join(device.card_lines())}", file=sys.stderr)
 
     from cosc_4397_pathtracing_raytracing_project_tpu import RenderConfig
     from cosc_4397_pathtracing_raytracing_project_tpu.ops import fast
@@ -105,36 +83,12 @@ def main():
     desc.camera.resolution = (w, h)
     scene = Scene.from_desc(desc)
     print(f"scene: {scene.triangles.count} tris, {w}x{h}", file=sys.stderr)
+    if args.compare:
+        return compare(desc, args)
 
-    kw = {}
-    if args.cluster is not None:
-        kw["cluster_size"] = args.cluster
-    import cosc_4397_pathtracing_raytracing_project_tpu.render.engine as eng
+    from cosc_4397_pathtracing_raytracing_project_tpu.ops import bvh
 
-    if args.cluster is not None:
-        from cosc_4397_pathtracing_raytracing_project_tpu.ops import bvh as bvh_mod
-        from cosc_4397_pathtracing_raytracing_project_tpu.ops.pallas.mesh_kernel import (
-            ClusterMeshIntersector,
-        )
-
-        v0 = np.asarray(scene.triangles.v0)
-        e1 = np.asarray(scene.triangles.e1)
-        e2 = np.asarray(scene.triangles.e2)
-        mat = np.asarray(scene.triangles.material_id)
-        tmin = np.minimum(np.minimum(v0, v0 + e1), v0 + e2)
-        tmax = np.maximum(np.maximum(v0, v0 + e1), v0 + e2)
-        bvh = bvh_mod.try_native_build(tmin, tmax, 8) or bvh_mod.build_bvh(
-            tmin, tmax, leaf_size=8
-        )
-        o = bvh.order
-        # pass the BVH so the sweep measures the production treelet
-        # partition (without it the fallback fixed-run partition with
-        # looser AABBs is benchmarked — not comparable to the default)
-        cluster = ClusterMeshIntersector(
-            v0[o], e1[o], e2[o], mat[o], cluster_size=args.cluster, bvh=bvh
-        )
-    else:
-        cluster = make_mesh_intersector(scene)
+    tri_isect = make_mesh_intersector(scene, args.leaf or bvh.LEAF_SIZE)
     sampler = None
     if args.nee:
         from cosc_4397_pathtracing_raytracing_project_tpu.ops.lights import (
@@ -155,35 +109,30 @@ def main():
 
     import functools
 
-    from cosc_4397_pathtracing_raytracing_project_tpu.ops.pallas.mesh_kernel import (
-        JIT_COMPILER_OPTIONS,
-    )
-
-    @functools.partial(jax.jit, static_argnames=("k",),
-                       compiler_options=JIT_COMPILER_OPTIONS)
+    @functools.partial(jax.jit, static_argnames=("k",))
     def run(scene, key, iteration, k):
         def body(i, acc):
             return acc + fast.trace_sample_mesh(
-                scene, cfg, key, iteration + i, cluster,
+                scene, cfg, key, iteration + i, tri_isect,
                 light_sampler=sampler,
             )
         acc0 = jnp.zeros((scene.camera.pixel_count, 3), jnp.float32)
         if k == 1:
             return acc0 + fast.trace_sample_mesh(
-                scene, cfg, key, iteration, cluster, light_sampler=sampler
+                scene, cfg, key, iteration, tri_isect, light_sampler=sampler
             )
         return jax.lax.fori_loop(0, k, body, acc0)
 
     key = jax.random.PRNGKey(0)
     t0 = time.time()
-    sync(run(scene, key, jnp.int32(1), args.batch))
+    run(scene, key, jnp.int32(1), args.batch).block_until_ready()
     print(f"compile+first: {time.time()-t0:.2f}s", file=sys.stderr)
 
     best = float("inf")
     for i in range(args.samples):
         t0 = time.time()
         out = run(scene, key, jnp.int32(2 + i * args.batch), args.batch)
-        sync(out)
+        out.block_until_ready()
         dt = (time.time() - t0) / args.batch
         best = min(best, dt)
         print(f"sample {i}: {dt*1e3:.1f} ms/sample", file=sys.stderr)
@@ -195,11 +144,57 @@ def main():
             "mrays_per_sec": round(rays / best / 1e6, 3),
             "depth": args.depth,
             "sort": not args.no_sort,
-            "cluster": args.cluster,
             "batch": args.batch,
             "nee": args.nee,
+            "device": device.device_record(),
         }
     )
+
+
+def compare(desc, args):
+    """Both mesh pipelines × leaf sizes through Renderer, interleaved."""
+    import json
+    import statistics
+
+    from cosc_4397_pathtracing_raytracing_project_tpu import (
+        RenderConfig,
+        Renderer,
+    )
+
+    configs = {}
+    for leaf in (int(v) for v in args.leaves.split(",")):
+        for pipeline in ("fast_mesh", "reference"):
+            cfg = RenderConfig(
+                trace_depth=args.depth, pipeline=pipeline, nee=args.nee,
+                bvh_leaf_size=leaf, samples_per_launch=args.spp,
+            )
+            r = Renderer(desc, cfg)
+            t0 = time.perf_counter()
+            r.step(args.spp)  # compile
+            r.sync()
+            print(f"{pipeline} leaf {leaf}: compile+first "
+                  f"{time.perf_counter() - t0:.2f} s", file=sys.stderr)
+            configs[(pipeline, leaf)] = r
+    pixels = next(iter(configs.values())).scene.camera.pixel_count
+    rates = {k: [] for k in configs}
+    for rep in range(args.repeats):
+        for (pipeline, leaf), r in configs.items():
+            r.reset()
+            t0 = time.perf_counter()
+            r.render(args.spp)
+            r.sync()
+            rate = pixels * args.spp / (time.perf_counter() - t0)
+            rates[(pipeline, leaf)].append(rate)
+            print(f"run {rep} {pipeline} leaf {leaf}: {rate:.6e} rays/s",
+                  file=sys.stderr)
+    summary = {
+        f"{p} leaf {l}": {"median_rays_per_s": statistics.median(v),
+                          "runs": v}
+        for (p, l), v in rates.items()
+    }
+    print(json.dumps({"spp": args.spp, "depth": args.depth,
+                      "configs": summary, "card": device.card_lines(),
+                      "device": device.device_record()}))
 
 
 if __name__ == "__main__":

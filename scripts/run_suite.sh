@@ -2,36 +2,37 @@
 # Full-suite runner: the whole test suite, split across TWO pytest
 # processes with a fresh interpreter each.
 #
-# Why not one process: on this single-core host, jax/XLA:CPU becomes
-# fragile once a process accumulates ~165 live compiled executables —
-# first the persistent-cache serialize path aborts (SIGABRT, mitigated
-# by the conftest disabling the cache at full-suite scale), then ~170
-# executables in, a NATIVE COMPILE itself segfaults (observed 2026-08-20
-# at test_parallel::test_sharded_mesh_dof_nee_matches_single_device,
-# rc 139, after 155 greens — the same test passes in a fresh process).
-# Splitting the run resets the executable count per shard; each shard
-# stays well under the ceiling, and each collects <120 tests so the
-# conftest's targeted-run cache policy applies.
+# Why not one process: jax/XLA:CPU grows fragile once a process holds
+# ~165 live compiled executables (the persistent-cache serialize path
+# aborts, and later a native compile can segfault), while the same test
+# passes in a fresh process. Splitting the run resets the executable count
+# per shard; each shard stays well under that ceiling.
+#
+# The shards are derived from tests/test_*.py (alternating files by name),
+# so a new or deleted test file needs no edit here.
 #
 # Usage, from the repo root:  sh scripts/run_suite.sh [extra pytest args]
 # Exit status is non-zero iff any shard fails.
 set -u
 cd "$(dirname "$0")/.."
 
-SHARD_A="tests/test_adaptive.py tests/test_aux.py tests/test_bvh.py \
-tests/test_denoise.py tests/test_dof.py tests/test_envmap.py \
-tests/test_fast_mesh.py tests/test_fast_pipeline.py tests/test_golden.py \
-tests/test_graft_entry.py tests/test_intersect.py tests/test_megakernel.py"
-SHARD_B="tests/test_mesh_scene.py tests/test_models.py tests/test_native.py \
-tests/test_nee.py tests/test_parallel.py tests/test_refraction.py \
-tests/test_render.py tests/test_sampler.py tests/test_scene.py \
-tests/test_viewer_cli.py"
+SHARD_A=""
+SHARD_B=""
+i=0
+for f in tests/test_*.py; do
+    if [ $((i % 2)) -eq 0 ]; then
+        SHARD_A="$SHARD_A $f"
+    else
+        SHARD_B="$SHARD_B $f"
+    fi
+    i=$((i + 1))
+done
 
 # NB: pytest.ini already applies -q; adding another here would double to
 # -qq and suppress the "N passed" summary lines entirely.
 rc=0
 for shard in "$SHARD_A" "$SHARD_B"; do
     # shellcheck disable=SC2086
-    python -m pytest $shard "$@" || rc=$?
+    JAX_PLATFORMS=cpu python -m pytest $shard "$@" || rc=$?
 done
 exit $rc

@@ -1,13 +1,13 @@
 """Adaptive sampling (render.adaptive): layout, bookkeeping, estimator
-consistency, and the tile-selected kernel path — all in interpret mode on
-the 64×64 CORNELL_SMALL scene."""
+consistency, and the tile-selected XLA path against dense fast renders —
+on the 64×64 CORNELL_SMALL scene."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
 from cosc_4397_pathtracing_raytracing_project_tpu import RenderConfig
-from cosc_4397_pathtracing_raytracing_project_tpu.ops.pallas import megakernel
 from cosc_4397_pathtracing_raytracing_project_tpu.render.adaptive import (
     AdaptiveRenderer,
     make_tile_layout,
@@ -22,11 +22,48 @@ def scene():
     return Scene.from_desc(parse_scene(CORNELL_SMALL))
 
 
+# CORNELL_SMALL's materials; the camera looks level over a diffuse floor lit
+# by a small light behind it. The upper 32×64 tile (rows 0-31) sees only
+# empty sky: every sample is exactly 0, so its two-buffer error is exactly 0.
+# The lower tile sees the floor, noisy at depth 2. Cornell's own two tiles
+# differ in noise by only ~1.5×, where the marginal-gain rule splits rounds
+# close to evenly and the split depends on the draws.
+HALF_SKY = CORNELL_SMALL.split("CAMERA")[0] + """CAMERA
+RES 64 64
+FOVY 45
+ITERATIONS 8
+DEPTH 8
+FILE half_sky
+EYE 0.0 1 10.5
+LOOKAT 0 1 0
+UP 0 1 0
+
+OBJECT 0
+cube
+material 0
+TRANS 0 4 12
+ROTAT 0 0 0
+SCALE 1 .3 1
+
+OBJECT 1
+cube
+material 1
+TRANS 0 0 0
+ROTAT 0 0 0
+SCALE 20 .01 20
+"""
+
+
+@pytest.fixture(scope="module")
+def half_sky():
+    return Scene.from_desc(parse_scene(HALF_SKY))
+
+
 def test_tile_layout_covers_frame_exactly_once():
     w, h = 100, 70  # partial blocks on both axes
     px, py, idx, valid = make_tile_layout(w, h, (32, 64))
     assert px.shape == py.shape == idx.shape
-    assert px.shape[1] == megakernel.TILE
+    assert px.shape[1] == 32 * 64
     flat = idx.reshape(-1)
     real = flat[flat < w * h]
     # every pixel exactly once; padding lanes all map to the trash slot
@@ -41,13 +78,15 @@ def test_tile_layout_covers_frame_exactly_once():
 
 
 def test_tile_layout_rejects_wrong_area():
+    # any positive block shape is a valid layout; an empty block is not
+    assert make_tile_layout(64, 64, (32, 32))[0].shape == (4, 32 * 32)
     with pytest.raises(ValueError):
-        make_tile_layout(64, 64, (32, 32))
+        make_tile_layout(64, 64, (0, 32))
 
 
 def test_warmup_counts_and_mean(scene):
     cfg = RenderConfig(trace_depth=2)
-    r = AdaptiveRenderer(scene, cfg, interpret=True)
+    r = AdaptiveRenderer(scene, cfg)
     r.warmup(2)
     assert r.avg_spp == pytest.approx(2.0)
     spp = r.spp_map()
@@ -62,7 +101,7 @@ def test_warmup_counts_and_mean(scene):
 
 def test_refine_updates_only_selected_tiles(scene):
     cfg = RenderConfig(trace_depth=2)
-    r = AdaptiveRenderer(scene, cfg, interpret=True)
+    r = AdaptiveRenderer(scene, cfg)
     r.warmup(2)
     img_before = r.linear_image()
     sel = r.refine(spp=2, frac=0.5)  # 1 of 2 tiles
@@ -76,21 +115,34 @@ def test_refine_updates_only_selected_tiles(scene):
     assert r.avg_spp == pytest.approx(3.0)
 
 
+def _dense_fast(scene, cfg, key, k):
+    """Sum of k dense full-frame samples (iterations 1..k) through the
+    Renderer's jitted chunk (render_chunk → the fast pipeline)."""
+    from cosc_4397_pathtracing_raytracing_project_tpu.render.engine import (
+        render_chunk,
+    )
+    from cosc_4397_pathtracing_raytracing_project_tpu.render.state import (
+        RenderState,
+    )
+
+    assert cfg.resolve_pipeline(scene) == "fast"
+    state = RenderState.create(scene.camera.pixel_count).replace(key=key)
+    chunk = jax.jit(render_chunk, static_argnames=("config", "num_samples"))
+    return np.asarray(chunk(scene, state, cfg, k).accum)
+
+
 def test_adaptive_all_tiles_matches_dense_megakernel_depth1_sobol(scene):
     """At trace_depth=1 with sampler='sobol' every random draw comes from
     the pixel-keyed LD lattice, so the render is independent of the tile
     decomposition: the adaptive path (spatial blocks, per-tile iteration
-    slots) must reproduce the dense megakernel render bit-exactly."""
+    slots) must reproduce the dense fast-pipeline render bit-exactly."""
     cfg = RenderConfig(trace_depth=1, sampler="sobol", ld_depths=1)
     k = 2
-    dense = np.asarray(
-        megakernel.render_samples(
-            scene, cfg, jnp.int32(7), jnp.int32(1), k, interpret=True
-        )
-    )
+    key = jax.random.PRNGKey(7)
+    dense = _dense_fast(scene, cfg, key, k)
 
-    r = AdaptiveRenderer(scene, cfg, seed=0, interpret=True)
-    r._seed = jnp.int32(7)
+    r = AdaptiveRenderer(scene, cfg, seed=0)
+    r._key = key
     r.warmup(2 * k)  # k into A, k into B: iterations 1..k then k+1..2k
     total = np.asarray(r._acc_a[: r._n] + r._acc_b[: r._n])
     # A holds iterations 1..k == the dense render's batch
@@ -100,11 +152,10 @@ def test_adaptive_all_tiles_matches_dense_megakernel_depth1_sobol(scene):
 
 
 def test_adaptive_env_exact_matches_dense():
-    """Adaptive × envmap closure (exact mode): render_tiles carries the
-    in-kernel bilinear env gather, and — since misses settle per tile with
-    no full-frame composite — the depth-1 sobol decomposition-independence
-    proof extends verbatim to env scenes: spatial-block tiles reproduce the
-    dense env render bit-exactly."""
+    """Adaptive × envmap: render_tiles carries the bilinear env lookup per
+    lane, so the depth-1 sobol decomposition-independence proof extends
+    verbatim to env scenes: spatial-block tiles reproduce the dense env
+    render bit-exactly."""
     import os
 
     from cosc_4397_pathtracing_raytracing_project_tpu.scene.parser import (
@@ -118,26 +169,38 @@ def test_adaptive_env_exact_matches_dense():
 
     cfg = RenderConfig(trace_depth=1, sampler="sobol", ld_depths=1)
     k = 2
-    dense = np.asarray(
-        megakernel.render_samples(
-            env_scene, cfg, jnp.int32(7), jnp.int32(1), k, interpret=True
-        )
-    )
-    r = AdaptiveRenderer(env_scene, cfg, seed=0, interpret=True)
-    r._seed = jnp.int32(7)
+    key = jax.random.PRNGKey(7)
+    dense = _dense_fast(env_scene, cfg, key, k)
+    r = AdaptiveRenderer(env_scene, cfg, seed=0)
+    r._key = key
     r.warmup(2 * k)
     a_only = np.asarray(r._acc_a[: r._n])
     assert np.array_equal(a_only, dense)
 
 
-def test_render_budget_loop(scene):
+def test_render_budget_loop(half_sky):
     cfg = RenderConfig(trace_depth=2)
-    r = AdaptiveRenderer(scene, cfg, interpret=True)
+    r = AdaptiveRenderer(half_sky, cfg)
     r.render(avg_spp=8, warmup_spp=4, round_spp=2, frac=0.5)
     assert r.avg_spp >= 8.0
     spp = r.spp_map()
     assert spp.min() >= 4  # warmup floor
     assert spp.max() > spp.min()  # refinement actually concentrated work
+    # all 4 rounds went to the floor tile: the sky tile has nothing to gain
+    assert (spp[:32] == 4).all() and (spp[32:] == 12).all()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_refine_targets_noisy_tile(half_sky, seed):
+    """The two-buffer oracle sees the sky tile's zero error and the floor
+    tile's noise, and every refinement round picks the floor tile."""
+    r = AdaptiveRenderer(half_sky, RenderConfig(trace_depth=2), seed=seed)
+    r.warmup(4)
+    err = r.tile_errors()
+    assert err[0] == 0.0 and err[1] > 0.0
+    sels = [np.asarray(r.refine(spp=2, frac=0.5)).tolist() for _ in range(4)]
+    assert sels == [[1]] * 4
+    assert np.asarray(r._counts)[:2].tolist() == [2, 6]
 
 
 def test_cli_adaptive_headless(tmp_path):
@@ -168,18 +231,17 @@ def test_cli_adaptive_headless(tmp_path):
 
 def test_sharded_adaptive_bit_identical(scene):
     """The tile-sharded dispatch (parallel.shard.render_tiles_sharded) must
-    reproduce the single-device adaptive render bit-exactly — each tile's
-    kernel sees identical (seed, tile id, iter base, px, py) regardless of
-    which rank runs it."""
+    reproduce the single-device adaptive render bit-exactly — every draw
+    is keyed by (seed, pixel, iteration), whichever rank traces the row."""
     from cosc_4397_pathtracing_raytracing_project_tpu.parallel import make_mesh
 
     cfg = RenderConfig(trace_depth=2)
-    ref = AdaptiveRenderer(scene, cfg, interpret=True)
+    ref = AdaptiveRenderer(scene, cfg)
     ref.warmup(4)
     ref.refine(spp=2, frac=1.0)
 
-    mesh = make_mesh(4)  # 2 tiles → the 2K=4-step dispatch, 1 tile/rank
-    r = AdaptiveRenderer(scene, cfg, interpret=True, mesh=mesh)
+    mesh = make_mesh(4)  # 2 tiles → the 2K=4-row dispatch, 1 row/rank
+    r = AdaptiveRenderer(scene, cfg, mesh=mesh)
     r.warmup(4)
     r.refine(spp=2, frac=1.0)
 
@@ -198,7 +260,7 @@ def test_sharded_adaptive_partial_selection():
     sc = Scene.from_desc(parse_scene(wide))
     cfg = RenderConfig(trace_depth=2)
     mesh = make_mesh(8)  # m = 4: n_sel rounds 1 → 4? no — frac 0.25 of 4
-    r = AdaptiveRenderer(sc, cfg, interpret=True, mesh=mesh)
+    r = AdaptiveRenderer(sc, cfg, mesh=mesh)
     assert r.num_tiles == 4
     r.warmup(2)
     img_before = r.linear_image()
@@ -206,7 +268,7 @@ def test_sharded_adaptive_partial_selection():
     assert len(sel) == 4  # the full frame this time (tiny test scene)
     # a second round on a 2-device mesh exercises true partial selection
     mesh2 = make_mesh(2)  # m = 1: selection stays 1 tile
-    r2 = AdaptiveRenderer(sc, cfg, interpret=True, mesh=mesh2)
+    r2 = AdaptiveRenderer(sc, cfg, mesh=mesh2)
     r2.warmup(2)
     before2 = r2.linear_image()
     sel2 = r2.refine(spp=2, frac=0.25)
@@ -227,12 +289,12 @@ def test_sharded_adaptive_pads_indivisible_tiles(scene):
     from cosc_4397_pathtracing_raytracing_project_tpu.parallel import make_mesh
 
     cfg = RenderConfig(trace_depth=2)
-    ref = AdaptiveRenderer(scene, cfg, interpret=True)
+    ref = AdaptiveRenderer(scene, cfg)
     ref.warmup(4)
     ref.refine(spp=2, frac=1.0)
 
     mesh = make_mesh(8)  # 2 tiles → quantum 4 → trash-tile padding
-    r = AdaptiveRenderer(scene, cfg, interpret=True, mesh=mesh)
+    r = AdaptiveRenderer(scene, cfg, mesh=mesh)
     assert r.num_tiles == 2 and r._quantum == 4
     r.warmup(4)
     sel = r.refine(spp=2, frac=1.0)
@@ -254,17 +316,17 @@ def test_adaptive_checkpoint_resume_bit_identical(scene, tmp_path):
     iteration counters key every stream, so the result must be bit-exact
     vs an uninterrupted run."""
     cfg = RenderConfig(trace_depth=2)
-    straight = AdaptiveRenderer(scene, cfg, interpret=True)
+    straight = AdaptiveRenderer(scene, cfg)
     straight.warmup(4)
     straight.refine(spp=2, frac=0.5)
     straight.refine(spp=2, frac=0.5)
 
-    r = AdaptiveRenderer(scene, cfg, interpret=True)
+    r = AdaptiveRenderer(scene, cfg)
     r.warmup(4)
     r.refine(spp=2, frac=0.5)
     ckpt = r.save_checkpoint(str(tmp_path / "adaptive.npz"))
 
-    r2 = AdaptiveRenderer(scene, cfg, interpret=True).load_checkpoint(ckpt)
+    r2 = AdaptiveRenderer(scene, cfg).load_checkpoint(ckpt)
     assert r2.avg_spp == r.avg_spp
     r2.refine(spp=2, frac=0.5)
 
@@ -275,14 +337,14 @@ def test_adaptive_checkpoint_resume_bit_identical(scene, tmp_path):
     )
 
 
-def test_adaptive_render_resumes_without_rewarmup(scene, tmp_path):
+def test_adaptive_render_resumes_without_rewarmup(half_sky, tmp_path):
     """render() on a resumed instance tops up to the total budget without
     re-running the uniform warmup."""
     cfg = RenderConfig(trace_depth=2)
-    r = AdaptiveRenderer(scene, cfg, interpret=True)
+    r = AdaptiveRenderer(half_sky, cfg)
     r.render(avg_spp=4, warmup_spp=4, round_spp=2, frac=0.5)
     ckpt = r.save_checkpoint(str(tmp_path / "a.npz"))
-    r2 = AdaptiveRenderer(scene, cfg, interpret=True).load_checkpoint(ckpt)
+    r2 = AdaptiveRenderer(half_sky, cfg).load_checkpoint(ckpt)
     spent_before = r2._lane_budget_spent
     r2.render(avg_spp=8, warmup_spp=4, round_spp=2, frac=0.5)
     assert r2.avg_spp >= 8.0
@@ -303,7 +365,7 @@ def test_checkpoint_kind_mismatch_raises(scene, tmp_path):
     )
 
     cfg = RenderConfig(trace_depth=2)
-    r = AdaptiveRenderer(scene, cfg, interpret=True)
+    r = AdaptiveRenderer(scene, cfg)
     r.warmup(2)
     adaptive_ckpt = r.save_checkpoint(str(tmp_path / "adaptive.npz"))
     with pytest.raises(ValueError, match="adaptive"):
@@ -313,14 +375,14 @@ def test_checkpoint_kind_mismatch_raises(scene, tmp_path):
         str(tmp_path / "uniform.npz"), RenderState.create(64 * 64, seed=0)
     )
     with pytest.raises(ValueError, match="uniform"):
-        AdaptiveRenderer(scene, cfg, interpret=True).load_checkpoint(
+        AdaptiveRenderer(scene, cfg).load_checkpoint(
             uniform_ckpt
         )
     # layout mismatch: same kind, different frame
     with pytest.raises(ValueError, match="does not match"):
         wide = CORNELL_SMALL.replace("RES 64 64", "RES 128 64")
         AdaptiveRenderer(
-            Scene.from_desc(parse_scene(wide)), cfg, interpret=True
+            Scene.from_desc(parse_scene(wide)), cfg
         ).load_checkpoint(adaptive_ckpt)
 
 
@@ -357,5 +419,5 @@ def test_adaptive_requires_megakernel_scene():
         geom_index=jnp.zeros((1,), jnp.int32),
     )
     sc = sc.replace(triangles=tri)
-    with pytest.raises(ValueError, match="megakernel|analytic"):
+    with pytest.raises(ValueError, match="analytic"):
         AdaptiveRenderer(sc, RenderConfig())

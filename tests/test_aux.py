@@ -50,7 +50,7 @@ def test_profile_pipeline():
 
     scene = Scene.from_desc(parse_scene(CORNELL_SMALL))
     stats = profile_pipeline(scene, RenderConfig(trace_depth=4), reps=1)
-    assert stats["pipeline"] in ("fast", "pallas", "fast_mesh", "reference")
+    assert stats["pipeline"] == "fast"
     for k in ("total_ms", "bounce1_ms", "per_bounce_ms", "fixed_ms"):
         assert stats[k] >= 0
 

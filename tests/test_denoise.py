@@ -233,8 +233,8 @@ class TestAovPass:
 def test_end_to_end_low_spp_gain():
     """The headline contract: at a fixed low sample budget on the golden
     Cornell, denoising buys several dB against a deeply-converged
-    reference of the same configuration. (The TPU datum on the real
-    800x800 golden: 25.06 -> 36.01 dB at 16 spp with NEE.)"""
+    reference of the same configuration. (On the full 800x800 golden:
+    25.06 -> 36.01 dB at 16 spp with NEE.)"""
     scene = _small(GOLDEN, 96)
     cfg = RenderConfig(
         samples_per_launch=16, antialias=True, sampler="sobol", nee=True

@@ -218,19 +218,12 @@ def test_parser_environment_block():
     assert desc.env_strength == 1.0
     scene = Scene.from_desc(desc)
     assert scene.envmap is not None
-    # on CPU envmap scenes resolve to the XLA fast pipeline; the megakernel
-    # carries small maps in-kernel (exact one-hot MXU bilinear) up to its
-    # VMEM/matmul budget, so this 128x256 map is megakernel-supported and
-    # routes there on TPU (BRDF-only estimator)
+    # envmap scenes resolve to the XLA fast pipeline, with or without NEE,
+    # whatever the map's size
     assert RenderConfig().resolve_pipeline(scene) == "fast"
-    from cosc_4397_pathtracing_raytracing_project_tpu.ops.pallas import (
-        megakernel,
-    )
-
-    assert megakernel.supports(scene)
-    # maps past the in-kernel texel budget stay on the fast pipeline
+    assert RenderConfig(nee=True).resolve_pipeline(scene) == "fast"
     big = scene.envmap.replace(img=jnp.zeros((512, 1024, 3), jnp.float32))
-    assert not megakernel.supports(scene.replace(envmap=big))
+    assert RenderConfig().resolve_pipeline(scene.replace(envmap=big)) == "fast"
 
 
 def test_parser_environment_requires_file():
@@ -384,262 +377,3 @@ def test_env_nee_unbiased_and_lower_variance(tmp_path):
     err_nee = float(np.mean((got - ref) ** 2))
     err_plain = float(np.mean((plain - ref) ** 2))
     assert err_nee < 0.25 * err_plain
-
-
-# ─────────────────── sun/sky split (megakernel env mode) ───────────────────
-
-
-def test_split_envmap_tables():
-    """Sun extraction: a hard bright texel becomes a delta light with
-    irradiance E = L·Δω; the residual SH reproduces a constant map."""
-    from cosc_4397_pathtracing_raytracing_project_tpu.ops.envmap import (
-        sh9_eval,
-        split_envmap,
-    )
-
-    h, w = 64, 128
-    img = np.full((h, w, 3), 0.3, np.float64)
-    img[20, 37] = [500.0, 400.0, 300.0]
-    suns, sh = split_envmap(img)
-    assert len(suns) == 1
-    d = np.array(suns[0][:3])
-    np.testing.assert_allclose(np.linalg.norm(d), 1.0, rtol=1e-6)
-    edges = np.linspace(0, np.pi, h + 1)
-    omega = (np.cos(edges[20]) - np.cos(edges[21])) * 2 * np.pi / w
-    np.testing.assert_allclose(suns[0][3], 500.0 * omega, rtol=1e-6)
-    # residual = the constant sky; SH eval reproduces it everywhere
-    rng = np.random.default_rng(0)
-    dd = rng.normal(size=(200, 3))
-    dd /= np.linalg.norm(dd, axis=1, keepdims=True)
-    for ch in range(3):
-        vals = np.asarray(sh9_eval(sh, dd[:, 0], dd[:, 1], dd[:, 2])[ch])
-        np.testing.assert_allclose(vals, 0.3, rtol=2e-3)
-
-
-def _split_render(scene, cfg, spp, depth):
-    import jax.numpy as jnp
-
-    from cosc_4397_pathtracing_raytracing_project_tpu.ops.pallas import (
-        megakernel,
-    )
-    from cosc_4397_pathtracing_raytracing_project_tpu.render.state import (
-        RenderState,
-    )
-
-    state = RenderState.create(scene.camera.pixel_count, seed=0)
-    seed = (state.key.reshape(-1)[-1].astype(jnp.uint32)).astype(jnp.int32)
-    rad = megakernel.render_samples(
-        scene, cfg, seed, state.iteration + 1, spp, interpret=True
-    )
-    return np.asarray(rad) / spp
-
-
-def test_megakernel_split_matches_exact():
-    """env_mode='split' (delta suns + SH sky + exact composited background)
-    pins against the unbiased fast-pipeline render: identical background
-    (both are the same bilinear map on primary misses) and closely matching
-    lit geometry (SH-2 irradiance is near-exact for diffuse receivers)."""
-    desc = load_scene_desc(os.path.join(SCENES, "env_spheres.txt"))
-    desc.camera.resolution = (64, 64)
-    scene = Scene.from_desc(desc)
-
-    split = _split_render(
-        scene, RenderConfig(trace_depth=4, env_mode="split"), 24, 4
-    )
-
-    r = Renderer(
-        desc,
-        RenderConfig(
-            trace_depth=4, nee=True, samples_per_launch=16, pipeline="fast"
-        ),
-        seed=1,
-    )
-    r.render(96)
-    exact = np.asarray(r.state.accum) / 96
-
-    assert np.isfinite(split).all()
-    assert abs(split.mean() - exact.mean()) / exact.mean() < 0.02
-    corr = np.corrcoef(split.mean(-1), exact.mean(-1))[0, 1]
-    # 0.97 measured; the residual is the mode's documented approximation
-    # (delta suns harden the 1.8° soft shadow edges; specular bounces see
-    # the SH-blurred sky) — tripling spp moves it <0.001, so not MC noise
-    assert corr > 0.95
-    # background rows (top of frame = sky only): EXACT equality of the
-    # composite against the fast pipeline's miss lookup, no MC noise
-    w = 64
-    np.testing.assert_allclose(
-        split[: 3 * w], exact[: 3 * w], rtol=1e-4, atol=1e-5
-    )
-
-
-# ─────────────── exact in-kernel env (megakernel env_mode='exact') ───────────
-
-
-def test_megakernel_env_exact_matches_fast():
-    """env_mode='exact' runs IN-KERNEL on the megakernel (deferred-miss
-    registers + one one-hot MXU bilinear gather per sample — the TPU
-    counterpart of the reference evaluating its env light inside the shade
-    kernel, `pathtrace.cu:357-365`). Pins: background rows (pure primary
-    miss, deterministic — spp-independent) match the XLA fast pipeline's
-    bilinear lookup near-exactly (the only deltas are the polynomial
-    atan2/acos, |err| ~1e-7 rad, and matmul-vs-lerp rounding); the lit
-    frame matches statistically (same unbiased BRDF-sampling estimator,
-    different RNG streams)."""
-    desc = load_scene_desc(os.path.join(SCENES, "env_spheres.txt"))
-    desc.camera.resolution = (64, 64)
-    scene = Scene.from_desc(desc)
-
-    mk = _split_render(scene, RenderConfig(trace_depth=3), 16, 3)
-
-    r = Renderer(
-        desc,
-        RenderConfig(trace_depth=3, samples_per_launch=16, pipeline="fast"),
-        seed=1,
-    )
-    r.render(64)
-    fast = np.asarray(r.state.accum) / 64
-
-    w = 64
-    assert np.isfinite(mk).all()
-    np.testing.assert_allclose(mk[: 3 * w], fast[: 3 * w], rtol=3e-4,
-                               atol=1e-5)
-    assert abs(mk.mean() - fast.mean()) / fast.mean() < 0.03
-    # Correlate CLIPPED images: this scene's ~4000× sun makes BRDF-only
-    # estimates firefly-dominated, so unclipped per-pixel correlation is
-    # ~0 even between two fast-pipeline renders of different seeds
-    # (measured: fast16-vs-fast64 corr −0.004 unclipped, 0.912 clipped;
-    # mk-vs-fast64 0.910 clipped — the kernel matches the fast pipeline
-    # as well as the pipeline matches itself). Images are compared as
-    # clamped linear means anyway (the save transform clips), so the
-    # clipped metric is the one that matters.
-    cm = np.clip(mk, 0.0, 1.0).mean(-1)
-    cf = np.clip(fast, 0.0, 1.0).mean(-1)
-    corr = np.corrcoef(cm, cf)[0, 1]
-    assert corr > 0.85
-
-
-def test_megakernel_env_nee_matches_fast(tmp_path):
-    """In-kernel env NEE+MIS (shared per-(iteration, depth) alias draws +
-    the escape-side pdf-plane MIS weight) is estimator-compatible with the
-    fast pipeline's per-pixel env NEE: same mean, tightly matching images
-    at equal spp on the hard-sun stress scene. Per-pixel means and
-    variances are identical by construction — sharing the env draw across
-    lanes only correlates NEIGHBORING pixels' noise."""
-    desc = _sun_scene(tmp_path, res=32)
-    scene = Scene.from_desc(desc)
-    cfg = RenderConfig(trace_depth=4, nee=True)
-
-    mk = _split_render(scene, cfg, 64, 4)
-
-    r = Renderer(
-        desc,
-        RenderConfig(trace_depth=4, nee=True, samples_per_launch=32,
-                     pipeline="fast"),
-        seed=5,
-    )
-    r.render(64)
-    fast = np.asarray(r.state.accum) / 64
-
-    assert np.isfinite(mk).all()
-    assert abs(mk.mean() - fast.mean()) / fast.mean() < 0.05
-    cm = np.clip(mk, 0.0, 1.0).mean(-1)
-    cf = np.clip(fast, 0.0, 1.0).mean(-1)
-    corr = np.corrcoef(cm, cf)[0, 1]
-    assert corr > 0.95
-
-
-def test_megakernel_env_nee_furnace(tmp_path):
-    """The in-kernel env NEE estimator passes the furnace test: constant
-    environment c over a convex diffuse body with albedo a renders a·c on
-    the body and exactly c in the background (primary escapes keep MIS
-    weight 1 — prev_pdf < 0). Tolerance note: the SHARED per-(iteration,
-    depth) env draws make the noise frame-correlated, so the body-mean
-    error shrinks with spp but NOT with pixel count — measured ±2% at
-    64 spp (0.411 vs 0.4195 expected), hence 96 spp / rtol 0.04."""
-    desc = _furnace_scene(tmp_path, res=16)
-    c = float(desc.env_image[0, 0, 0])
-    scene = Scene.from_desc(desc)
-    img = _split_render(
-        scene, RenderConfig(trace_depth=3, nee=True), 96, 3
-    ).reshape(16, 16, 3)
-    corner = img[:3, :3]
-    center = img[6:10, 6:10]
-    np.testing.assert_allclose(corner, c, rtol=1e-5)
-    np.testing.assert_allclose(center.mean(), 0.6 * c, rtol=0.04)
-
-
-def test_megakernel_env_nee_rejects_mixed_lights(tmp_path):
-    """A scene mixing an envmap with analytic emissive lights needs the
-    combined two-technique NEE — that runs on pipeline='fast' only."""
-    img = np.full((8, 16, 3), 0.2, np.float32)
-    write_hdr(str(tmp_path / "mix.hdr"), img)
-    text = """MATERIAL 0
-RGB         .7 .7 .7
-SPECEX      0
-SPECRGB     0 0 0
-REFL        0
-REFR        0
-REFRIOR     0
-EMITTANCE   0
-
-MATERIAL 1
-RGB         1 1 1
-SPECEX      0
-SPECRGB     0 0 0
-REFL        0
-REFR        0
-REFRIOR     0
-EMITTANCE   5
-
-ENVIRONMENT
-FILE mix.hdr
-STRENGTH 1
-
-CAMERA
-RES         16 16
-FOVY        45
-ITERATIONS  4
-DEPTH       2
-FILE        mix
-EYE         0 0 6
-LOOKAT      0 0 0
-UP          0 1 0
-
-OBJECT 0
-sphere
-material 0
-TRANS       0 0 0
-ROTAT       0 0 0
-SCALE       2 2 2
-
-OBJECT 1
-cube
-material 1
-TRANS       0 4 0
-ROTAT       0 0 0
-SCALE       1 .2 1
-"""
-    desc = parse_scene(text, base_dir=str(tmp_path))
-    scene = Scene.from_desc(desc)
-    with pytest.raises(ValueError, match="fast"):
-        _split_render(scene, RenderConfig(trace_depth=2, nee=True), 2, 2)
-    # and the auto router keeps such scenes off the megakernel
-    assert RenderConfig(nee=True).resolve_pipeline(scene) != "pallas"
-
-
-def test_megakernel_env_exact_size_cap():
-    """Maps past MAX_ENV_EXACT_TEXELS don't fit the in-kernel VMEM/matmul
-    budget: supports() routes them off the megakernel and render_samples
-    raises actionably."""
-    from cosc_4397_pathtracing_raytracing_project_tpu.ops.pallas import (
-        megakernel,
-    )
-
-    desc = load_scene_desc(os.path.join(SCENES, "env_spheres.txt"))
-    desc.camera.resolution = (32, 32)
-    scene = Scene.from_desc(desc)
-    big = em.build_envmap(np.ones((512, 520, 3), np.float32))
-    scene = scene.replace(envmap=big)
-    assert not megakernel.supports(scene)
-    with pytest.raises(ValueError, match="split"):
-        _split_render(scene, RenderConfig(trace_depth=2), 2, 2)

@@ -1,4 +1,5 @@
-"""SoA mesh pipeline (cluster kernel + shade_soa) vs the reference pipeline."""
+"""SoA mesh pipeline (BVH triangle intersector + shade_soa) vs the reference
+pipeline."""
 
 import numpy as np
 import jax
@@ -23,10 +24,9 @@ from cosc_4397_pathtracing_raytracing_project_tpu.scene import (
 
 @pytest.fixture(scope="module")
 def cluster(tri_scene):
-    """Module-shared interpret-mode intersector: the three pipeline tests
-    then reuse one traced/compiled cluster kernel instead of compiling
-    three (≈30s each on a cold CI box)."""
-    return make_mesh_intersector(tri_scene, interpret=True)
+    """Module-shared triangle intersector (ops.bvh.BVHMeshIntersector):
+    the BVH is built once for all the pipeline tests."""
+    return make_mesh_intersector(tri_scene)
 
 
 @pytest.fixture(scope="module")
@@ -87,8 +87,7 @@ def test_mesh_ray_sort_image_invariant(tri_scene, cluster):
     cfg_sorted = RenderConfig(trace_depth=4, sky_strength=0.5, mesh_ray_sort=True)
     cfg_unsorted = dataclasses.replace(cfg_sorted, mesh_ray_sort=False)
     key = jax.random.PRNGKey(7)
-    # eager on purpose: jitting this costs a ~60s XLA compile per config on
-    # a 1-core CI box vs ~10s of eager dispatch for a single render
+    # eager on purpose: one render per config does not repay a compile
     a = fast.trace_sample_mesh(tri_scene, cfg_sorted, key, jnp.int32(1), cluster)
     b = fast.trace_sample_mesh(tri_scene, cfg_unsorted, key, jnp.int32(1), cluster)
     np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-6, atol=1e-7)
@@ -154,10 +153,8 @@ def test_mesh_pipeline_matches_reference(tri_scene, cluster):
     cfg = RenderConfig(trace_depth=4, sky_strength=0.5)
     key = jax.random.PRNGKey(0)
     n_samples = 6
-    # ref path: jit with iteration traced — one cheap compile (no pallas
-    # inside), then 6 fast executions. Mesh path stays eager: jitting the
-    # interpret-mode cluster kernel costs a ~60s XLA compile on a 1-core
-    # CI box, more than 6 eager renders.
+    # ref path: jit with iteration traced — one compile, then 6 fast
+    # executions. The mesh path stays eager.
     ref_fn = jax.jit(lambda s, k, it: trace_sample(s, cfg, k, it))
     acc_mesh = jnp.zeros((tri_scene.camera.pixel_count, 3))
     acc_ref = jnp.zeros_like(acc_mesh)
@@ -233,7 +230,7 @@ def test_mesh_nee_sort_invariant(tri_scene, cluster):
     assert np.abs(a - plain).mean() > 1e-5
 
 
-@pytest.mark.slow  # 2 x 12 eager interpret-mode renders
+@pytest.mark.slow  # 2 x 12 eager renders
 def test_mesh_nee_mean_agrees(tri_scene, cluster):
     """Unbiasedness pin: the mesh NEE estimator's mean matches the plain
     BRDF estimator on the same scene (different variance, same target)."""
@@ -257,3 +254,61 @@ def test_mesh_nee_mean_agrees(tri_scene, cluster):
     a = np.asarray(acc_nee).mean() / n_samples
     b = np.asarray(acc_plain).mean() / n_samples
     assert abs(a - b) / max(b, 1e-9) < 0.12
+
+
+def _random_rays(rng, n):
+    o = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
+    o[:, 1] = rng.uniform(0.5, 6.0, n)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o, d
+
+
+def test_mesh_intersector_call_soa_matches_brute_force(tri_scene, cluster,
+                                                       rng_np):
+    """The XLA BVH intersector's call_soa against the all-triangle
+    Möller–Trumbore matrix of ops.intersect (same nearest hit, distance,
+    ray-facing unit normal and material)."""
+    from cosc_4397_pathtracing_raytracing_project_tpu.ops import intersect
+
+    o, d = _random_rays(rng_np, 2048)
+    tris = tri_scene.triangles
+    cand = np.asarray(
+        intersect.triangle_candidate_t(tris, jnp.asarray(o), jnp.asarray(d))
+    )
+    ref_t, ref_i = cand.min(axis=1), cand.argmin(axis=1)
+    hit = ref_t < 1e29
+    assert 0.1 < hit.mean() < 0.9  # the ray set exercises hits and misses
+    t, idx, nx, ny, nz, mat = (
+        np.asarray(x) for x in cluster.call_soa(
+            *(jnp.asarray(o[:, i]) for i in range(3)),
+            *(jnp.asarray(d[:, i]) for i in range(3)),
+        )
+    )
+    assert np.array_equal(idx >= 0, hit)
+    np.testing.assert_allclose(t[hit], ref_t[hit], rtol=1e-5, atol=1e-5)
+    assert (t[~hit] >= 1e29).all()
+    # winner identity (shared edges may tie between neighbours)
+    assert (idx[hit] == ref_i[hit]).mean() > 0.99
+    n = np.stack([nx, ny, nz], axis=1)[hit]
+    np.testing.assert_allclose(np.linalg.norm(n, axis=1), 1.0, atol=1e-5)
+    assert ((n * d[hit]).sum(axis=1) <= 1e-6).all()  # faces the ray
+    geo = np.asarray(tris.normal)[idx[hit]]
+    np.testing.assert_allclose(np.abs((n * geo).sum(axis=1)), 1.0, atol=1e-5)
+    np.testing.assert_array_equal(
+        mat[hit], np.asarray(tris.material_id)[idx[hit]].astype(np.float32)
+    )
+
+
+def test_mesh_intersector_call_t_and_active_mask(tri_scene, cluster, rng_np):
+    """call_t is call_soa's distance; inactive lanes are not traced."""
+    o, d = _random_rays(rng_np, 1024)
+    cols = [jnp.asarray(o[:, i]) for i in range(3)] + [
+        jnp.asarray(d[:, i]) for i in range(3)
+    ]
+    t_full = np.asarray(cluster.call_soa(*cols)[0])
+    np.testing.assert_array_equal(np.asarray(cluster.call_t(*cols)), t_full)
+    active = np.arange(1024) % 2 == 0
+    t_act = np.asarray(cluster.call_t(*cols, active=jnp.asarray(active)))
+    np.testing.assert_array_equal(t_act[active], t_full[active])
+    assert (t_act[~active] >= 1e29).all()

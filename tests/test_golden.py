@@ -51,9 +51,9 @@ def test_full_image_psnr_vs_golden():
     means): render 160² (800/160 = 5, so the golden downsamples by exact 5×5
     block mean in linear space — both images are box-filtered estimates of
     the same radiance) and require PSNR above the 200-spp Monte Carlo noise
-    floor minus margin. Measured on TPU: 26.96 dB @ 200 spp (pure-MC slope:
-    23.9 @ 100, 29.9 @ 400); converged evidence: 39.4 dB @ 100k spp, limited
-    by the golden's own 5000-spp noise."""
+    floor minus margin. Recorded estimator values: 26.96 dB @ 200 spp
+    (pure-MC slope: 23.9 @ 100, 29.9 @ 400); converged evidence: 39.4 dB
+    @ 100k spp, limited by the golden's own 5000-spp noise."""
     import math
     import os
 

@@ -1,9 +1,6 @@
-"""The driver contract: __graft_entry__.entry() must compile single-chip
-and dryrun_multichip(8) must run every sharded pipeline on an 8-device
-mesh. Running them here, in-process on the conftest's 8 virtual CPU
-devices, pins the driver artifacts (MULTICHIP_r*.json) so they can never
-silently regress again — round 4 shipped a dryrun config its own test
-suite proved raises (VERDICT r4 #3/#4)."""
+"""__graft_entry__.entry() must trace single-device and
+dryrun_multichip(8) must run the sharded pipelines on an 8-device mesh —
+here, in-process on the conftest's 8 virtual CPU devices."""
 
 import os
 import sys
@@ -26,10 +23,8 @@ def test_entry_traces():
 
 
 def test_dryrun_multichip_8_devices():
-    """The exact artifact the driver produces: dryrun_multichip(8) on an
-    8-device CPU mesh — XLA SoA step, sharded megakernel (sobol,
-    interpret), sharded mesh pipeline, and the sharded adaptive leg
-    (which now exercises trash-tile padding)."""
+    """dryrun_multichip(8) on an 8-device CPU mesh — the XLA SoA step and
+    the sharded adaptive leg (which exercises trash-tile padding)."""
     if len(jax.devices()) < 8:
         pytest.skip("needs the conftest's 8 virtual CPU devices")
     graft.dryrun_multichip(8)  # raises on any failure

@@ -56,6 +56,8 @@ def test_mesh_scene_auto_uses_bvh(mesh_desc):
     cfg = RenderConfig()
     scene = Scene.from_desc(mesh_desc)
     assert cfg.resolve_intersector(scene) == "bvh"
+    # triangle scenes take the readable pipeline and its BVH intersector
+    # on every backend; 'fast_mesh' is reachable by name
     assert cfg.resolve_pipeline(scene) == "reference"
 
 

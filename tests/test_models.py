@@ -15,8 +15,9 @@ from test_render import CORNELL_SMALL
 
 def test_registry_lists_reference_configs():
     models = available_models()
-    for name in ("naive", "shared", "bvh", "megakernel", "wavefront"):
+    for name in ("naive", "shared", "bvh", "wavefront"):
         assert name in models
+    assert "megakernel" not in models
 
 
 @pytest.mark.parametrize("model", ["naive", "shared", "bvh", "wavefront"])

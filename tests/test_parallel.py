@@ -107,91 +107,13 @@ def test_output_sharding_layout(small_scene):
     assert shard_shapes == {(64 * 64 // 8, 3)}
 
 
-@pytest.mark.slow
-def test_sharded_megakernel_matches_single_device():
-    """The flagship Pallas megakernel inside shard_map: TILE-aligned dp
-    shards reproduce the single-device megakernel image (global tile-base
-    RNG alignment, see megakernel.render_samples); sp ranks only change
-    float-add order. sp=1 must be bit-identical."""
-    from cosc_4397_pathtracing_raytracing_project_tpu.ops.pallas import megakernel
-    from cosc_4397_pathtracing_raytracing_project_tpu.parallel import (
-        make_sharded_pallas_step,
-    )
-
-    desc = parse_scene(CORNELL_SMALL)
-    desc.camera.resolution = (128, 64)  # 8192 px: dp=4 → exactly 1 TILE/shard
-    scene = Scene.from_desc(desc)
-    cfg = RenderConfig(trace_depth=4)
-    state = RenderState.create(scene.camera.pixel_count, seed=0)
-    seed = (state.key.reshape(-1)[-1].astype(jnp.uint32)).astype(jnp.int32)
-    num_samples = 4
-
-    single = np.asarray(
-        megakernel.render_samples(
-            scene, cfg, seed, state.iteration + 1, num_samples, interpret=True
-        )
-    )
-    assert np.isfinite(single).all() and single.max() > 0
-
-    mesh = make_mesh(8, sample_parallel=2)  # dp=4
-    step = make_sharded_pallas_step(scene, cfg, num_samples, mesh, interpret=True)
-    out = step(scene, state)
-    assert int(out.iteration) == num_samples
-    np.testing.assert_allclose(np.asarray(out.accum), single, rtol=1e-5, atol=1e-6)
-
-    mesh1 = make_mesh(4, sample_parallel=1, devices=jax.devices()[:4])
-    step1 = make_sharded_pallas_step(scene, cfg, num_samples, mesh1, interpret=True)
-    out1 = step1(scene, state)
-    np.testing.assert_array_equal(np.asarray(out1.accum), single)
-
-
-@pytest.mark.slow
-def test_sharded_megakernel_misaligned_shards_decorrelate():
-    """dp shards smaller than one megakernel TILE must still draw distinct
-    RNG streams: tile_base is dp·ceil(local/TILE), not offset//TILE (which
-    collides below one TILE per shard — regression test for spatially
-    correlated noise across shard pairs)."""
-    from cosc_4397_pathtracing_raytracing_project_tpu.ops.pallas import megakernel
-    from cosc_4397_pathtracing_raytracing_project_tpu.parallel import (
-        make_sharded_pallas_step,
-    )
-
-    desc = parse_scene(CORNELL_SMALL)
-    desc.camera.resolution = (64, 64)  # 4096 px: dp=8 → 512 px/shard < TILE
-    scene = Scene.from_desc(desc)
-    cfg = RenderConfig(trace_depth=2)
-    state = RenderState.create(scene.camera.pixel_count, seed=0)
-    assert scene.camera.pixel_count // 8 < megakernel.TILE
-
-    mesh = make_mesh(8, sample_parallel=1)
-    step = make_sharded_pallas_step(scene, cfg, 2, mesh, interpret=True)
-    out = np.asarray(step(scene, state).accum)
-    assert np.isfinite(out).all() and out.max() > 0
-
-    # identical tile_base would give shard pairs identical uniform draws:
-    # pixel-wise noise residuals of adjacent shards would correlate. The
-    # camera rows differ per shard, so compare the *noise* of two shards
-    # rendering the same geometry rows via a second seed.
-    state_b = RenderState.create(scene.camera.pixel_count, seed=123)
-    out_b = np.asarray(step(scene, state_b).accum)
-    noise = (out - out_b).reshape(8, -1)  # per-shard noise realization
-    for a in range(4):
-        # shards a and a+1 shared a tile_base under the bug
-        ra = noise[a].ravel()
-        rb = noise[a + 1].ravel()
-        denom = np.linalg.norm(ra) * np.linalg.norm(rb)
-        if denom > 0:
-            corr = float(ra @ rb / denom)
-            assert abs(corr) < 0.5, f"shards {a},{a+1} correlated: {corr}"
-
-
 from test_fast_mesh import tri_scene  # noqa: E402  (fixture reuse)
 
 
 @pytest.mark.slow
 def test_sharded_mesh_pipeline_matches_single_device(tri_scene):
     """The triangle-mesh pipeline inside shard_map: dp pixel slices through
-    trace_sample_mesh + the cluster kernel must match the single-device
+    trace_sample_mesh + the BVH intersector must match the single-device
     render to float reassociation (1-2 ulp; XLA fuses the differently-shaped
     per-shard graphs differently). RNG keys on global pixel ids, so the
     sampled paths are identical."""
@@ -209,16 +131,16 @@ def test_sharded_mesh_pipeline_matches_single_device(tri_scene):
     num_samples = 2
     state = RenderState.create(tri_scene.camera.pixel_count, seed=0)
 
-    cluster = make_mesh_intersector(tri_scene, interpret=True)
+    tri_isect = make_mesh_intersector(tri_scene)
     single = jnp.zeros((tri_scene.camera.pixel_count, 3))
     for i in range(num_samples):
         single = single + fast.trace_sample_mesh(
-            tri_scene, cfg, state.key, state.iteration + 1 + i, cluster
+            tri_scene, cfg, state.key, state.iteration + 1 + i, tri_isect
         )
     single = np.asarray(single)
 
     mesh = make_mesh(4, sample_parallel=1, devices=jax.devices()[:4])
-    step = make_sharded_mesh_step(tri_scene, cfg, num_samples, mesh, interpret=True)
+    step = make_sharded_mesh_step(tri_scene, cfg, num_samples, mesh)
     out = step(tri_scene, state)
     assert int(out.iteration) == num_samples
     np.testing.assert_allclose(
@@ -235,40 +157,7 @@ def test_indivisible_configs_raise(small_scene):
         make_mesh(8, sample_parallel=3)
 
 
-@pytest.mark.slow
-def test_sharded_megakernel_nee_matches_single_device():
-    """In-kernel NEE under shard_map: the static light table is derived in
-    make_sharded_pallas_step while the scene is concrete and threaded
-    through the trace; a TILE-aligned dp=4/sp=1 shard must reproduce the
-    single-device nee render bit-identically (same per-tile RNG streams,
-    same shadow rays)."""
-    from cosc_4397_pathtracing_raytracing_project_tpu.ops.pallas import megakernel
-    from cosc_4397_pathtracing_raytracing_project_tpu.parallel import (
-        make_sharded_pallas_step,
-    )
-
-    desc = parse_scene(CORNELL_SMALL)
-    desc.camera.resolution = (128, 64)  # 8192 px: dp=4 → exactly 1 TILE/shard
-    scene = Scene.from_desc(desc)
-    cfg = RenderConfig(trace_depth=4, nee=True, pipeline="pallas")
-    state = RenderState.create(scene.camera.pixel_count, seed=0)
-    seed = (state.key.reshape(-1)[-1].astype(jnp.uint32)).astype(jnp.int32)
-    num_samples = 2
-
-    single = np.asarray(
-        megakernel.render_samples(
-            scene, cfg, seed, state.iteration + 1, num_samples, interpret=True
-        )
-    )
-    assert np.isfinite(single).all() and single.max() > 0
-
-    mesh1 = make_mesh(4, sample_parallel=1, devices=jax.devices()[:4])
-    step1 = make_sharded_pallas_step(scene, cfg, num_samples, mesh1, interpret=True)
-    out1 = step1(scene, state)
-    np.testing.assert_array_equal(np.asarray(out1.accum), single)
-
-
-@pytest.mark.slow  # second interpret-mode sharded mesh compile
+@pytest.mark.slow  # second sharded mesh compile
 def test_sharded_mesh_dof_nee_matches_single_device(tri_scene):
     """DOF + NEE composed under shard_map on the mesh pipeline: the lens
     uniforms and the NEE uniforms are both PIXEL-keyed, and the prev_pdf
@@ -293,90 +182,22 @@ def test_sharded_mesh_dof_nee_matches_single_device(tri_scene):
     num_samples = 2
     state = RenderState.create(scene.camera.pixel_count, seed=0)
 
-    cluster = make_mesh_intersector(scene, interpret=True)
+    tri_isect = make_mesh_intersector(scene)
     sampler = make_light_sampler(scene)
     single = jnp.zeros((scene.camera.pixel_count, 3))
     for i in range(num_samples):
         single = single + fast.trace_sample_mesh(
-            scene, cfg, state.key, state.iteration + 1 + i, cluster,
+            scene, cfg, state.key, state.iteration + 1 + i, tri_isect,
             light_sampler=sampler,
         )
     single = np.asarray(single)
     assert np.isfinite(single).all()
 
     mesh = make_mesh(4, sample_parallel=1, devices=jax.devices()[:4])
-    step = make_sharded_mesh_step(scene, cfg, num_samples, mesh, interpret=True)
+    step = make_sharded_mesh_step(scene, cfg, num_samples, mesh)
     out = step(scene, state)
     np.testing.assert_allclose(
         np.asarray(out.accum), single, rtol=3e-7, atol=1e-7
-    )
-
-
-@pytest.mark.slow  # two interpret-mode megakernel compiles
-def test_sharded_megakernel_dof_matches_single_device():
-    """Thin-lens DOF under shard_map: the lens draws come from the per-
-    (seed, iter, tile) camera stream (0xD0F seed mix), which keys on the
-    GLOBAL tile id — a TILE-aligned dp=4 shard must be bit-identical to
-    the single-device DOF render."""
-    from cosc_4397_pathtracing_raytracing_project_tpu.ops.pallas import megakernel
-    from cosc_4397_pathtracing_raytracing_project_tpu.parallel import (
-        make_sharded_pallas_step,
-    )
-
-    desc = parse_scene(CORNELL_SMALL)
-    desc.camera.resolution = (128, 64)  # 8192 px: dp=4 → exactly 1 TILE/shard
-    desc.camera.aperture = 0.6
-    scene = Scene.from_desc(desc)
-    cfg = RenderConfig(trace_depth=3, dof=True)
-    state = RenderState.create(scene.camera.pixel_count, seed=0)
-    seed = (state.key.reshape(-1)[-1].astype(jnp.uint32)).astype(jnp.int32)
-    num_samples = 2
-
-    single = np.asarray(
-        megakernel.render_samples(
-            scene, cfg, seed, state.iteration + 1, num_samples, interpret=True
-        )
-    )
-    assert np.isfinite(single).all() and single.max() > 0
-
-    mesh1 = make_mesh(4, sample_parallel=1, devices=jax.devices()[:4])
-    step1 = make_sharded_pallas_step(scene, cfg, num_samples, mesh1, interpret=True)
-    out1 = step1(scene, state)
-    assert int(out1.iteration) == num_samples
-    np.testing.assert_array_equal(np.asarray(out1.accum), single)
-
-
-@pytest.mark.slow
-def test_sharded_megakernel_sobol_matches_single_device():
-    """sobol in-kernel under shard_map: LD draws are keyed by GLOBAL pixel
-    id (rebuilt in-kernel from the slice's px/py), PRNG streams by global
-    tile — a TILE-aligned dp-sharded sobol render must stay bit-identical
-    to the single-device one."""
-    from cosc_4397_pathtracing_raytracing_project_tpu.ops.pallas import megakernel
-    from cosc_4397_pathtracing_raytracing_project_tpu.parallel import (
-        make_sharded_pallas_step,
-    )
-
-    desc = parse_scene(CORNELL_SMALL)
-    desc.camera.resolution = (128, 64)  # 8192 px: dp=4 → exactly 1 TILE/shard
-    scene = Scene.from_desc(desc)
-    cfg = RenderConfig(trace_depth=2, antialias=True, sampler="sobol")
-    state = RenderState.create(scene.camera.pixel_count, seed=0)
-    seed = (state.key.reshape(-1)[-1].astype(jnp.uint32)).astype(jnp.int32)
-    num_samples = 2
-
-    single = np.asarray(
-        megakernel.render_samples(
-            scene, cfg, seed, state.iteration + 1, num_samples, interpret=True
-        )
-    )
-    assert np.isfinite(single).all() and single.max() > 0
-
-    mesh = make_mesh(8, sample_parallel=2)  # dp=4
-    step = make_sharded_pallas_step(scene, cfg, num_samples, mesh, interpret=True)
-    out = step(scene, state)
-    np.testing.assert_allclose(
-        np.asarray(out.accum), single, rtol=1e-5, atol=1e-6
     )
 
 
@@ -417,131 +238,3 @@ def test_sharded_env_nee_matches_single_device(tmp_path):
     corr = np.corrcoef(img_a.mean(-1).ravel(), img_b.mean(-1).ravel())[0, 1]
     assert corr > 0.95
 
-
-def test_sharded_megakernel_env_split_matches_single_device(tmp_path):
-    """env_mode='split' under shard_map: the sun/SH static tables ride the
-    closure and the exact-background composite is pixel_offset-aware, so a
-    TILE-aligned dp-sharded split render stays bit-identical to the
-    single-device one."""
-    from cosc_4397_pathtracing_raytracing_project_tpu.io.png import write_hdr
-    from cosc_4397_pathtracing_raytracing_project_tpu.ops.pallas import (
-        megakernel,
-    )
-    from cosc_4397_pathtracing_raytracing_project_tpu.parallel import (
-        make_sharded_pallas_step,
-    )
-
-    img = np.full((8, 16, 3), 0.1, np.float32)
-    img[2, 5] = [80.0, 70.0, 60.0]
-    write_hdr(str(tmp_path / "sun.hdr"), img)
-    text = CORNELL_SMALL.replace("EMITTANCE   5", "EMITTANCE   0")
-    text = "ENVIRONMENT\nFILE sun.hdr\nSTRENGTH 1\n\n" + text
-    desc = parse_scene(text, base_dir=str(tmp_path))
-    desc.camera.resolution = (128, 64)  # dp=4 → exactly 1 TILE/shard
-    scene = Scene.from_desc(desc)
-    cfg = RenderConfig(trace_depth=3, env_mode="split")
-    state = RenderState.create(scene.camera.pixel_count, seed=0)
-    seed = (state.key.reshape(-1)[-1].astype(jnp.uint32)).astype(jnp.int32)
-    num_samples = 2
-
-    single = np.asarray(
-        megakernel.render_samples(
-            scene, cfg, seed, state.iteration + 1, num_samples, interpret=True
-        )
-    )
-    assert np.isfinite(single).all() and single.max() > 0
-
-    mesh = make_mesh(8, sample_parallel=2)  # dp=4
-    step = make_sharded_pallas_step(scene, cfg, num_samples, mesh, interpret=True)
-    out = step(scene, state)
-    np.testing.assert_allclose(
-        np.asarray(out.accum), single, rtol=1e-5, atol=1e-6
-    )
-
-
-def test_sharded_megakernel_env_exact_matches_single_device(tmp_path):
-    """env_mode='exact' under shard_map: the in-kernel bilinear gather's
-    static dims derive from shapes alone (tracer-safe, unlike the split
-    tables) and the radiance planes ride the replicated EnvMap leaves — a
-    TILE-aligned dp-sharded exact render stays bit-identical to the
-    single-device one."""
-    from cosc_4397_pathtracing_raytracing_project_tpu.io.png import write_hdr
-    from cosc_4397_pathtracing_raytracing_project_tpu.ops.pallas import (
-        megakernel,
-    )
-    from cosc_4397_pathtracing_raytracing_project_tpu.parallel import (
-        make_sharded_pallas_step,
-    )
-
-    img = np.full((8, 16, 3), 0.1, np.float32)
-    img[2, 5] = [80.0, 70.0, 60.0]
-    img[5, 11] = [4.0, 9.0, 14.0]  # second feature: exercises wrap/lerp
-    write_hdr(str(tmp_path / "sun.hdr"), img)
-    text = CORNELL_SMALL.replace("EMITTANCE   5", "EMITTANCE   0")
-    text = "ENVIRONMENT\nFILE sun.hdr\nSTRENGTH 1\n\n" + text
-    desc = parse_scene(text, base_dir=str(tmp_path))
-    desc.camera.resolution = (128, 64)  # dp=4 → exactly 1 TILE/shard
-    scene = Scene.from_desc(desc)
-    cfg = RenderConfig(trace_depth=3)  # env_mode='exact' is the default
-    state = RenderState.create(scene.camera.pixel_count, seed=0)
-    seed = (state.key.reshape(-1)[-1].astype(jnp.uint32)).astype(jnp.int32)
-    num_samples = 2
-
-    single = np.asarray(
-        megakernel.render_samples(
-            scene, cfg, seed, state.iteration + 1, num_samples, interpret=True
-        )
-    )
-    assert np.isfinite(single).all() and single.max() > 0
-
-    mesh = make_mesh(8, sample_parallel=2)  # dp=4
-    step = make_sharded_pallas_step(scene, cfg, num_samples, mesh, interpret=True)
-    out = step(scene, state)
-    np.testing.assert_allclose(
-        np.asarray(out.accum), single, rtol=1e-5, atol=1e-6
-    )
-
-
-def test_sharded_megakernel_env_nee_matches_single_device(tmp_path):
-    """In-kernel env NEE under shard_map: the env_nee flag precomputes in
-    make_sharded_pallas_step (deriving it needs concrete emittance values
-    a traced scene can't provide), the shared per-(iteration, depth) env
-    rows rebuild identically per sp rank from absolute iterations, and
-    the pdf plane rides the replicated EnvMap leaves — a TILE-aligned
-    dp-sharded env NEE render matches the single-device one."""
-    from cosc_4397_pathtracing_raytracing_project_tpu.io.png import write_hdr
-    from cosc_4397_pathtracing_raytracing_project_tpu.ops.pallas import (
-        megakernel,
-    )
-    from cosc_4397_pathtracing_raytracing_project_tpu.parallel import (
-        make_sharded_pallas_step,
-    )
-
-    img = np.full((8, 16, 3), 0.1, np.float32)
-    img[2, 5] = [80.0, 70.0, 60.0]
-    write_hdr(str(tmp_path / "sun.hdr"), img)
-    # env-ONLY scene: zero the ceiling light (in-kernel env NEE excludes
-    # scenes that also have analytic emitters — those route to 'fast')
-    text = CORNELL_SMALL.replace("EMITTANCE 1.5", "EMITTANCE 0")
-    text = "ENVIRONMENT\nFILE sun.hdr\nSTRENGTH 1\n\n" + text
-    desc = parse_scene(text, base_dir=str(tmp_path))
-    desc.camera.resolution = (128, 64)  # dp=4 → exactly 1 TILE/shard
-    scene = Scene.from_desc(desc)
-    cfg = RenderConfig(trace_depth=3, nee=True)
-    state = RenderState.create(scene.camera.pixel_count, seed=0)
-    seed = (state.key.reshape(-1)[-1].astype(jnp.uint32)).astype(jnp.int32)
-    num_samples = 2
-
-    single = np.asarray(
-        megakernel.render_samples(
-            scene, cfg, seed, state.iteration + 1, num_samples, interpret=True
-        )
-    )
-    assert np.isfinite(single).all() and single.max() > 0
-
-    mesh = make_mesh(8, sample_parallel=2)  # dp=4
-    step = make_sharded_pallas_step(scene, cfg, num_samples, mesh, interpret=True)
-    out = step(scene, state)
-    np.testing.assert_allclose(
-        np.asarray(out.accum), single, rtol=1e-5, atol=1e-6
-    )

@@ -1,7 +1,6 @@
 """Refraction extension: a glass sphere between the camera and the light."""
 
 import numpy as np
-import pytest
 
 from cosc_4397_pathtracing_raytracing_project_tpu import RenderConfig, Renderer
 from cosc_4397_pathtracing_raytracing_project_tpu.scene import parse_scene
@@ -80,7 +79,7 @@ def test_refraction_supported_on_fast_pipeline():
     from cosc_4397_pathtracing_raytracing_project_tpu.scene import Scene
 
     cfg = RenderConfig(enable_refraction=True)
-    assert cfg.resolve_pipeline(Scene.from_desc(desc)) in ("fast", "pallas")
+    assert cfg.resolve_pipeline(Scene.from_desc(desc)) == "fast"
 
 
 def test_glass_fast_matches_reference_statistics():
@@ -111,48 +110,6 @@ def test_glass_fast_matches_reference_statistics():
     assert abs(a.mean() - b.mean()) / max(a.mean(), 1e-9) < 0.15
     corr = np.corrcoef(a.mean(-1).ravel(), b.mean(-1).ravel())[0, 1]
     assert corr > 0.9
-
-
-def test_glass_megakernel_matches_fast():
-    """The megakernel's glass branch (interpret mode) agrees with shade_soa."""
-    import jax.numpy as jnp
-
-    from cosc_4397_pathtracing_raytracing_project_tpu.ops import fast
-    from cosc_4397_pathtracing_raytracing_project_tpu.ops.pallas import megakernel
-    from cosc_4397_pathtracing_raytracing_project_tpu.scene import Scene
-
-    desc = parse_scene(GLASS_SCENE)
-    scene = Scene.from_desc(desc)
-    cfg = RenderConfig(enable_refraction=True, trace_depth=6)
-    n_samples = 24
-    # shrink the ray tile to exactly the 48×48 scene (2304 px = 18 rows of
-    # 128 lanes) — the default 16k-lane tile would run 7× the interpret work
-    # on padding
-    rows, tile = megakernel.TILE_ROWS, megakernel.TILE
-    megakernel.TILE_ROWS, megakernel.TILE = 18, 18 * 128
-    try:
-        acc = megakernel.render_samples(
-            scene, cfg, jnp.int32(7), jnp.int32(1), n_samples, interpret=True
-        )
-    finally:
-        megakernel.TILE_ROWS, megakernel.TILE = rows, tile
-    import jax
-
-    key = jax.random.PRNGKey(7)
-    # jit with iteration traced: one compile, 24 fast executions
-    fast_fn = jax.jit(lambda s, k, it: fast.trace_sample_fast(s, cfg, k, it))
-    acc_fast = jnp.zeros_like(acc)
-    for i in range(n_samples):
-        acc_fast = acc_fast + fast_fn(scene, key, jnp.int32(1 + i))
-    a = np.asarray(acc) / n_samples
-    b = np.asarray(acc_fast) / n_samples
-    assert np.isfinite(a).all()
-    h = w = 48
-    am = a.reshape(h, w, 3)
-    bm = b.reshape(h, w, 3)
-    # same transmitted hot spot, means agree statistically
-    assert am[20:28, 20:28].mean() > 4 * max(am[2:6, 2:6].mean(), 1e-6)
-    assert abs(am.mean() - bm.mean()) / max(bm.mean(), 1e-9) < 0.15
 
 
 def test_refraction_off_preserves_parity_semantics():

@@ -159,25 +159,25 @@ def test_ld_depths_knob():
 
 
 def test_sampler_validation():
+    import jax
     import jax.numpy as jnp
 
-    from cosc_4397_pathtracing_raytracing_project_tpu.ops.pallas import (
-        megakernel,
-    )
+    from cosc_4397_pathtracing_raytracing_project_tpu.ops import fast
     from cosc_4397_pathtracing_raytracing_project_tpu.scene import Scene
 
     scene = Scene.from_desc(_small())
     # unknown sampler name
     with pytest.raises(ValueError, match="sampler"):
         RenderConfig(sampler="halton").resolve_pipeline(scene)
-    # the in-kernel lattice rebuilds pixel ids from f32 coords: exact only
-    # below 2^24 pixels
+    # the mesh pipeline's packed (non-fused) sort carries pixel ids as f32:
+    # exact only below 2^24 pixels, so bigger frames must use the fused sort
     big = _small()
     big.camera.resolution = (4096, 4096)
     with pytest.raises(ValueError, match="2\\^24"):
-        megakernel.render_samples(
-            Scene.from_desc(big), RenderConfig(sampler="sobol"),
-            jnp.int32(0), jnp.int32(1), 1, interpret=True,
+        fast.trace_sample_mesh(
+            Scene.from_desc(big),
+            RenderConfig(sampler="sobol", mesh_sort_fused=False),
+            jax.random.PRNGKey(0), jnp.int32(1), None,
         )
 
 

@@ -142,7 +142,7 @@ def test_preview_server(small_desc):
         port = srv._httpd.server_address[1]
         base = f"http://127.0.0.1:{port}"
         html = urllib.request.urlopen(base + "/", timeout=10).read()
-        assert b"TPU Path Tracer" in html
+        assert b"JAX Path Tracer" in html
         frame = urllib.request.urlopen(base + "/frame.png", timeout=30).read()
         assert frame[:4] == b"\x89PNG"
         stats = json.loads(
